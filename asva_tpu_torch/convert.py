@@ -10,6 +10,9 @@ One layout fix is needed beyond that export's own re-layout: 1x1
 convolutions that asva_tpu holds as Dense (the VAE's quant_conv /
 post_quant_conv) come out as (o, i) and are held here, as in the
 reference checkpoints, as (o, i, 1, 1).
+
+An optax AdamW state exported the same way loads into the port's optimizer
+(`load_exported_adam_state`), so a run can move between the two packages.
 """
 from __future__ import annotations
 
@@ -38,3 +41,27 @@ def load_exported(module: nn.Module, state: Dict[str, np.ndarray],
         tensors[key] = t
     module.load_state_dict(tensors, strict=strict)
     return module
+
+
+def load_exported_adam_state(optimizer, mu: Dict[str, np.ndarray],
+                             nu: Dict[str, np.ndarray], count: int) -> None:
+    """Load an optax AdamW state into the port's optimizer
+    (`training.optim.AdamW`): `mu` and `nu` are the first and second moments
+    of the trainable subtree as {torch key: torch-layout numpy array} (the
+    moment trees passed through asva_tpu's `export_state_dict` like the
+    parameters), `count` the number of steps taken."""
+    state = {"count": int(count), "mu": {}, "nu": {}}
+    for name, p in zip(optimizer.names, optimizer.params):
+        for kind, tree in (("mu", mu), ("nu", nu)):
+            if name not in tree:
+                raise KeyError(f"no {kind} for trainable parameter {name}")
+            arr = np.asarray(tree[name])
+            if arr.shape != tuple(p.shape):
+                raise ValueError(f"{kind}[{name}]: shape {arr.shape}, "
+                                 f"expected {tuple(p.shape)}")
+            state[kind][name] = torch.from_numpy(np.array(arr))
+    extra = (set(mu) | set(nu)) - set(optimizer.names)
+    if extra:
+        raise KeyError(f"moments for non-trainable parameters: "
+                       f"{sorted(extra)[:8]}")
+    optimizer.load_state_dict(state)

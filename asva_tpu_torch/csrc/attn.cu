@@ -18,6 +18,13 @@
 // zeros for the QK^T contraction and never stores the padded columns.
 // Each head's output is cast to the input dtype (pallas :279).
 //
+// The same kernels are B4, the flash forward of training (_mha_fwd_kernel,
+// pallas_fused.py:649, called by _mha_fwd_flat :759): given a non-null `lse`
+// they also write the per-head log-sum-exp lse[g, m, h] = running max +
+// log(running sum) in fp32, which the backward (attn_bwd.cu) rebuilds the
+// probabilities from.  With lse == nullptr (generation) nothing else changes:
+// o is bit-identical either way.
+//
 // Numerics vs the Pallas body: it normalises P before PV (pallas :276); the
 // online form multiplies by 1/l after PV.  In fp32 the two agree to rounding;
 // in bf16, P is rounded before normalisation, so results differ at the bf16
@@ -98,8 +105,9 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ sr
 template <int DP>
 __global__ void __launch_bounds__(128)
 attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int M,
-                 int Sk, int kv_len, int H, int D, float scale) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int M, int Sk, int kv_len, int H,
+                 int D, float scale) {
   constexpr int LD = DP + 8, KC = DP / 16, DT = DP / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
@@ -227,6 +235,11 @@ attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             __floats2bfloat162_rn(oacc[dt][2] * inv1, oacc[dt][3] * inv1);
     }
   }
+  if (lse != nullptr && t4 == 0) {
+    float* lg = lse + (size_t)grp * M * H + h;
+    if (r0 < M) lg[(size_t)r0 * H] = mrow[0] + logf(lrow[0]);
+    if (r1 < M) lg[(size_t)r1 * H] = mrow[1] + logf(lrow[1]);
+  }
 }
 
 // ---------------------------------------------------------------- fp32 ---
@@ -235,8 +248,9 @@ constexpr int BQ32 = 32, BKV32 = 32, DMAX = 160, OPT = DMAX / 4;
 
 __global__ void __launch_bounds__(128)
 attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ o, int M,
-                int Sk, int kv_len, int H, int D, float scale) {
+                const float* __restrict__ v, float* __restrict__ o,
+                float* __restrict__ lse, int M, int Sk, int kv_len, int H,
+                int D, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);     // [BQ32][D]
   float* Ks = Qs + BQ32 * D;                      // [BKV32][D + 1]
@@ -314,49 +328,51 @@ attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int d = l4 + 4 * i;
       if (d < D) og[d] = oacc[i] * inv;
     }
+    if (lse != nullptr && l4 == 0)
+      lse[((size_t)grp * M + q0 + r) * H + h] = mrow + logf(lrow);
   }
 }
 
 template <int DP>
 int launch_bf16(int G, int M, int Sk, int kv_len, int H, int D, float scale,
                 const void* q, const void* k, const void* v, void* o,
-                cudaStream_t s) {
+                float* lse, cudaStream_t s) {
   const int smem = 3 * 64 * (DP + 8) * (int)sizeof(bf16);
   cudaError_t e = cudaFuncSetAttribute(
       attn_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((M + BQ16 - 1) / BQ16, H, G);
   attn_bf16_kernel<DP><<<grid, 128, smem, s>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, M, Sk, kv_len,
-      H, D, scale);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, M, Sk,
+      kv_len, H, D, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  D must be a multiple of 8 and at most
-// 160; 1 <= kv_len <= Sk.  The Python wrapper checks shapes, dtypes and
-// contiguity.  Returns cudaGetLastError() after the launch (0 = success).
-extern "C" int asva_attn(int dtype, int G, int M, int Sk, int kv_len, int H,
-                         int D, float scale, const void* q, const void* k,
-                         const void* v, void* o, void* stream) {
+// 160; 1 <= kv_len <= Sk.  lse is (G, M, H) fp32, or null (generation: o
+// only).  The Python wrapper
+// checks shapes, dtypes and contiguity.  Returns cudaGetLastError() after the
+// launch (0 = success).
+extern "C" int asva_mha_fwd(int dtype, int G, int M, int Sk, int kv_len,
+                            int H, int D, float scale, const void* q,
+                            const void* k, const void* v, void* o, void* lse,
+                            void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  float* l = (float*)lse;
   if (D % 8 || D > DMAX || kv_len < 1 || kv_len > Sk)
     return (int)cudaErrorInvalidValue;
   if (dtype == 1) {
+#define ASVA_CASE(DP) \
+  case DP:            \
+    return launch_bf16<DP>(G, M, Sk, kv_len, H, D, scale, q, k, v, o, l, s);
     switch ((D + 15) / 16 * 16) {
-      case 16: return launch_bf16<16>(G, M, Sk, kv_len, H, D, scale, q, k, v, o, s);
-      case 32: return launch_bf16<32>(G, M, Sk, kv_len, H, D, scale, q, k, v, o, s);
-      case 48: return launch_bf16<48>(G, M, Sk, kv_len, H, D, scale, q, k, v, o, s);
-      case 64: return launch_bf16<64>(G, M, Sk, kv_len, H, D, scale, q, k, v, o, s);
-      case 80: return launch_bf16<80>(G, M, Sk, kv_len, H, D, scale, q, k, v, o, s);
-      case 96: return launch_bf16<96>(G, M, Sk, kv_len, H, D, scale, q, k, v, o, s);
-      case 112: return launch_bf16<112>(G, M, Sk, kv_len, H, D, scale, q, k, v, o, s);
-      case 128: return launch_bf16<128>(G, M, Sk, kv_len, H, D, scale, q, k, v, o, s);
-      case 144: return launch_bf16<144>(G, M, Sk, kv_len, H, D, scale, q, k, v, o, s);
-      case 160: return launch_bf16<160>(G, M, Sk, kv_len, H, D, scale, q, k, v, o, s);
+      ASVA_CASE(16) ASVA_CASE(32) ASVA_CASE(48) ASVA_CASE(64) ASVA_CASE(80)
+      ASVA_CASE(96) ASVA_CASE(112) ASVA_CASE(128) ASVA_CASE(144) ASVA_CASE(160)
       default: return (int)cudaErrorInvalidValue;
     }
+#undef ASVA_CASE
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   const int smem = (BQ32 * D + BKV32 * (D + 1) + BKV32 * D +
@@ -366,7 +382,7 @@ extern "C" int asva_attn(int dtype, int G, int M, int Sk, int kv_len, int H,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((M + BQ32 - 1) / BQ32, H, G);
   attn_f32_kernel<<<grid, 128, smem, s>>>((const float*)q, (const float*)k,
-                                          (const float*)v, (float*)o, M, Sk,
-                                          kv_len, H, D, scale);
+                                          (const float*)v, (float*)o, l, M,
+                                          Sk, kv_len, H, D, scale);
   return (int)cudaGetLastError();
 }

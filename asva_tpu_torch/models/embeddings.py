@@ -9,6 +9,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.linear import Linear
+
 
 def sinusoidal_timestep_embedding(timesteps: torch.Tensor, dim: int,
                                   flip_sin_to_cos: bool = True,
@@ -33,8 +35,8 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_dim: int, time_embed_dim: int):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, time_embed_dim)
-        self.linear_2 = nn.Linear(time_embed_dim, time_embed_dim)
+        self.linear_1 = Linear(in_dim, time_embed_dim)
+        self.linear_2 = Linear(time_embed_dim, time_embed_dim)
 
     def forward(self, sample: torch.Tensor) -> torch.Tensor:
         return self.linear_2(F.silu(self.linear_1(sample)))

@@ -1,7 +1,7 @@
 """UNet down / mid / up blocks (port of asva_tpu/models/unet3d/blocks.py)."""
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -103,11 +103,12 @@ class UpBlock(nn.Module):
         self.upsamplers = (nn.ModuleList([FFUpsample(out_channels)])
                            if add_upsample else None)
 
-    def forward(self, x, res_states: List[torch.Tensor], temb,
+    def forward(self, x, res_states: Sequence[torch.Tensor], temb,
                 text_context=None, audio_context=None,
                 audio_token_indices=None, fuse_blocks: bool = False):
+        # read, never popped: a rematerialised block runs this twice
         for i, resnet in enumerate(self.resnets):
-            x = resnet(torch.cat([x, res_states.pop()], dim=-1), temb)
+            x = resnet(torch.cat([x, res_states[-1 - i]], dim=-1), temb)
             if self.attentions is not None:
                 x = self.attentions[i](x, text_context, audio_context,
                                        audio_token_indices, fuse_blocks)

@@ -8,7 +8,19 @@ audio segment masks as a static per-frame token gather (`audio_token_indices`
 
 `fuse_blocks` selects the generation variant (one B2 call per transformer
 block for attn1 + audio-x + text-x) over three B1 calls; both variants
-compute the same function.  Remat is not ported (generation only).
+compute the same function.
+
+Parameters are cast at use to the compute dtype (`compute_dtype`; None: the
+dtype of `conv_in.weight`), so a training build may keep fp32 parameters
+under bf16 activations.
+
+Remat (`UNet3DConfig.remat`, `remat_policy`) is `torch.utils.checkpoint`
+(non-reentrant) around whole down / mid / up blocks while gradients are
+enabled: "full" rematerialises every block, "highres" only the two
+highest-resolution levels.  asva_tpu's other policies are accepted and
+mapped to the nearer of those two: "dots" to "full"; "l0", "saveconv" and
+"saveconv0" to "highres" (their named-residual saves are not ported).
+Remat changes no output and no gradient.
 """
 from __future__ import annotations
 
@@ -18,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ...ops.norms import VideoGroupNorm
 from ..embeddings import TimestepEmbedding, sinusoidal_timestep_embedding
@@ -51,6 +64,8 @@ class UNet3DConfig:
     attention_head_dim: int = 8  # == number of heads (diffusers SD1.5 naming)
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
+    remat: bool = False
+    remat_policy: str = "full"  # or "highres"; see the module docstring
 
     @classmethod
     def tiny(cls, **kw) -> "UNet3DConfig":
@@ -63,10 +78,21 @@ class UNet3DConfig:
         return cls(**defaults)
 
 
+# remat_policy -> the first level (0 = highest resolution) that is NOT
+# rematerialised; None: every level is
+_REMAT_LEVELS = {"full": None, "dots": None, "highres": 2, "l0": 2,
+                 "saveconv": 2, "saveconv0": 2}
+
+
 class AudioUNet3D(nn.Module):
-    def __init__(self, config: UNet3DConfig = UNet3DConfig()):
+    def __init__(self, config: UNet3DConfig = UNet3DConfig(),
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         cfg = self.config = config
+        if cfg.remat_policy not in _REMAT_LEVELS:
+            raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                             f"known: {sorted(_REMAT_LEVELS)}")
+        self.compute_dtype = compute_dtype
         ch = cfg.block_out_channels
         temb = ch[0] * 4
         heads = cfg.attention_head_dim
@@ -106,6 +132,15 @@ class AudioUNet3D(nn.Module):
                                             cfg.norm_eps)
         self.conv_out = FFInflatedConv(ch[0], cfg.out_channels)
 
+    def _run_block(self, block, level: int, *args):
+        """block(*args), rematerialised in the backward when the config's
+        policy covers this resolution level."""
+        keep_from = _REMAT_LEVELS[self.config.remat_policy]
+        if (self.config.remat and torch.is_grad_enabled()
+                and (keep_from is None or level < keep_from)):
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 text_context: Optional[torch.Tensor],
                 audio_context: Optional[torch.Tensor] = None,
@@ -116,7 +151,7 @@ class AudioUNet3D(nn.Module):
         fuse_blocks=True is the generation variant (B2 per block)."""
         cfg = self.config
         b, f = sample.shape[:2]
-        dtype = self.conv_in.weight.dtype
+        dtype = self.compute_dtype or self.conv_in.weight.dtype
         if audio_token_indices is None and audio_mask is not None:
             audio_token_indices = mask_to_token_indices(audio_mask)
         timesteps = torch.as_tensor(timesteps, device=sample.device)
@@ -138,17 +173,19 @@ class AudioUNet3D(nn.Module):
 
         x = self.conv_in(sample.to(dtype))
         res_stack = [x]
-        for block in self.down_blocks:
-            x, residuals = block(x, emb, *ctx)
+        top = len(cfg.block_out_channels) - 1
+        for level, block in enumerate(self.down_blocks):
+            x, residuals = self._run_block(block, level, x, emb, *ctx)
             res_stack.extend(residuals)
 
-        x = self.mid_block(x, emb, *ctx)
+        x = self._run_block(self.mid_block, top, x, emb, *ctx)
 
-        for block in self.up_blocks:
+        for i, block in enumerate(self.up_blocks):
             n = len(block.resnets)
-            skips = res_stack[-n:]
+            skips = tuple(res_stack[-n:])
             del res_stack[-n:]
-            x = block(x, skips, emb, *ctx)
+            # up level i mirrors down level (top - i) in resolution
+            x = self._run_block(block, top - i, x, skips, emb, *ctx)
 
         x = F.silu(self.conv_norm_out(x))
         return self.conv_out(x)

@@ -22,6 +22,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ...ops import fused
+from ...ops.linear import Linear
 
 
 def conv2d_channels_last(x: torch.Tensor, weight: torch.Tensor,
@@ -47,8 +48,9 @@ class Conv2d(nn.Module):
             in_channels * kernel_size * kernel_size))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_channels_last(x, self.weight, self.bias, self.stride,
-                                    self.padding)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return conv2d_channels_last(x, self.weight.to(x.dtype), bias,
+                                    self.stride, self.padding)
 
 
 class Conv1x1(nn.Module):
@@ -62,7 +64,8 @@ class Conv1x1(nn.Module):
         nn.init.normal_(self.weight, std=1.0 / math.sqrt(in_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.flatten(1), self.bias)
+        return F.linear(x, self.weight.flatten(1).to(x.dtype),
+                        self.bias.to(x.dtype))
 
 
 class InflatedConv(Conv2d):
@@ -96,13 +99,14 @@ class FFInflatedConv(InflatedConv):
                  kernel_size: int = 3, stride: int = 1, padding: int = 1):
         super().__init__(in_channels, out_channels, kernel_size, stride,
                          padding)
-        self.conv_temp = nn.Linear(3 * out_channels, out_channels)
+        self.conv_temp = Linear(3 * out_channels, out_channels)
         nn.init.zeros_(self.conv_temp.weight)
         nn.init.zeros_(self.conv_temp.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return temporal_mix(super().forward(x), self.conv_temp.weight,
-                            self.conv_temp.bias)
+        y = super().forward(x)
+        return temporal_mix(y, self.conv_temp.weight.to(y.dtype),
+                            self.conv_temp.bias.to(y.dtype))
 
 
 class FFInflatedUpsample2xConv(FFInflatedConv):
@@ -124,10 +128,10 @@ class MultiHeadProjections(nn.Module):
         super().__init__()
         inner = num_heads * head_dim
         self.num_heads, self.head_dim = num_heads, head_dim
-        self.to_q = nn.Linear(query_dim, inner, bias=False)
-        self.to_k = nn.Linear(kv_dim or query_dim, inner, bias=False)
-        self.to_v = nn.Linear(kv_dim or query_dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, inner)])
+        self.to_q = Linear(query_dim, inner, bias=False)
+        self.to_k = Linear(kv_dim or query_dim, inner, bias=False)
+        self.to_v = Linear(kv_dim or query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([Linear(inner, inner)])
 
     def _bundle(self, ln, k, v):
         """(ls, lb, wq, wo, bo, k, v) for ops/fused.py."""
@@ -212,10 +216,10 @@ class TemporalAttention(nn.Module):
         super().__init__()
         inner = num_heads * head_dim
         self.num_heads, self.head_dim = num_heads, head_dim
-        self.to_q = nn.Linear(dim, inner, bias=False)
-        self.to_k = nn.Linear(dim, inner, bias=False)
-        self.to_v = nn.Linear(dim, inner, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(inner, inner)])
+        self.to_q = Linear(dim, inner, bias=False)
+        self.to_k = Linear(dim, inner, bias=False)
+        self.to_v = Linear(dim, inner, bias=False)
+        self.to_out = nn.ModuleList([Linear(inner, inner)])
         nn.init.zeros_(self.to_out[0].weight)
         nn.init.zeros_(self.to_out[0].bias)
 

@@ -11,6 +11,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ...ops.linear import Linear
 from ...ops.norms import VideoGroupNorm
 from .primitives import FFInflatedConv, FFInflatedUpsample2xConv
 
@@ -25,7 +26,7 @@ class FFResnetBlock(nn.Module):
         super().__init__()
         self.norm1 = VideoGroupNorm(groups, in_channels, eps)
         self.conv1 = FFInflatedConv(in_channels, out_channels)
-        self.time_emb_proj = (nn.Linear(temb_channels, out_channels)
+        self.time_emb_proj = (Linear(temb_channels, out_channels)
                               if temb_channels is not None else None)
         self.norm2 = VideoGroupNorm(groups, out_channels, eps)
         self.conv2 = FFInflatedConv(out_channels, out_channels)

@@ -21,6 +21,7 @@ import torch
 from torch import nn
 
 from ...ops import fused
+from ...ops.linear import Linear
 from ...ops.norms import AdaptiveOrLayerNorm, LayerNormParams, SpatialGroupNorm
 from ..embeddings import TimestepEmbedding, sinusoidal_timestep_embedding
 from .primitives import (Conv1x1, CrossAttention, FFSpatialAttention,
@@ -30,7 +31,7 @@ from .primitives import (Conv1x1, CrossAttention, FFSpatialAttention,
 class _GEGLUProj(nn.Module):
     def __init__(self, dim: int, inner: int):
         super().__init__()
-        self.proj = nn.Linear(dim, 2 * inner)
+        self.proj = Linear(dim, 2 * inner)
 
 
 class GEGLUFeedForward(nn.Module):
@@ -41,7 +42,7 @@ class GEGLUFeedForward(nn.Module):
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.ModuleList([_GEGLUProj(dim, dim * mult), nn.Identity(),
-                                  nn.Linear(dim * mult, dim)])
+                                  Linear(dim * mult, dim)])
 
     def forward(self, x: torch.Tensor, ln: LayerNormParams) -> torch.Tensor:
         c = x.shape[-1]

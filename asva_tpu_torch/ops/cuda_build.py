@@ -22,7 +22,7 @@ import types
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
-SOURCES = ("gemm", "attn")
+SOURCES = ("gemm", "attn", "attn_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -96,7 +96,11 @@ def library() -> types.SimpleNamespace:
     gemm.asva_error_string.argtypes = [_I]
     gemm.asva_error_string.restype = ctypes.c_char_p
     attn = ctypes.CDLL(paths["attn"][0])
-    attn.asva_attn.argtypes = [_I, _I, _I, _I, _I, _I, _I, _F, _VP, _VP, _VP,
-                               _VP, _VP]
-    attn.asva_attn.restype = _I
-    return types.SimpleNamespace(gemm=gemm, attn=attn)
+    attn.asva_mha_fwd.argtypes = [_I, _I, _I, _I, _I, _I, _I, _F, _VP, _VP,
+                                  _VP, _VP, _VP, _VP]
+    attn.asva_mha_fwd.restype = _I
+    attn_bwd = ctypes.CDLL(paths["attn_bwd"][0])
+    attn_bwd.asva_mha_bwd.argtypes = [_I, _I, _I, _I, _I, _I, _I, _F] \
+        + [_VP] * 10
+    attn_bwd.asva_mha_bwd.restype = _I
+    return types.SimpleNamespace(gemm=gemm, attn=attn, attn_bwd=attn_bwd)

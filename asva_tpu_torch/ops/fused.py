@@ -1,8 +1,8 @@
-"""Fused residual sub-layers of the UNet transformer block: kernels B1-B3.
+"""Fused residual sub-layers of the UNet transformer block: kernels B1-B5.
 
-Port of asva_tpu/ops/pallas_fused.py.  Each Pallas TPU kernel on the
-generation path becomes a composition of two hand-written CUDA kernels
-(`csrc/gemm.cu` K-gemm, `csrc/attn.cu` K-attn), split exactly where the
+Port of asva_tpu/ops/pallas_fused.py.  Each Pallas TPU kernel becomes a
+composition of hand-written CUDA kernels (`csrc/gemm.cu` K-gemm,
+`csrc/attn.cu` K-attn / B4, `csrc/attn_bwd.cu` B5), split exactly where the
 Pallas body casts to x.dtype:
 
   B1 fused_ln_attn   (pallas _ln_attn_flat)   = K-gemm(LN, store q)
@@ -11,12 +11,28 @@ Pallas body casts to x.dtype:
                                                 layouts of _ln_attn3_reference
   B3 fused_ln_geglu  (pallas _ln_geglu_flat)  = K-gemm(LN, GEGLU)
                                                 -> K-gemm(+bo, +x)
+  B4 mha_fwd         (pallas _mha_fwd_flat)   = K-attn that also writes the
+                                                per-head log-sum-exp
+  B5 mha_bwd         (pallas _mha_bwd_flat)   = flash backward: dQ kernel +
+                                                dK/dV kernel
+
+Gradients follow pallas_fused's custom_vjp rules, as
+`torch.autograd.Function`s: `fused_ln_attn` keeps (o, lse) from B4 and its
+backward is the manual composite around B5 (`_attn_bwd`, :399); the
+attention forward never re-runs.  `fused_ln_geglu` and `fused_ln_attn3`
+differentiate their plain composites recomputed in the backward (`_ff_bwd`
+:176, `_attn3_bwd` :566).  A wrapper whose input requires grad always returns
+a tensor with a grad_fn.
 
 Dispatch is by device, not by a memory budget: on CPU tensors each wrapper
 computes its plain PyTorch version (`*_plain`, the port's copy of the
-Pallas `_reference` composites); on CUDA tensors it launches its kernels or
-raises — it never falls back.  Weights stay in torch Linear layout (out, in)
-and are read in place.  `LAUNCHES` counts each wrapper's kernel launches.
+Pallas `_reference` composites and kernel bodies); on CUDA tensors it
+launches its kernels or raises — it never falls back.  The autograd rules
+are the same on both devices, with the plain B4/B5 inside on the CPU.
+Weights stay in torch Linear layout (out, in) and are read in place;
+parameters stored in another dtype than x are cast at use (`w.to(x.dtype)`,
+as asva_tpu casts its fp32 parameters).  `LAUNCHES` counts each wrapper's
+kernel launches.
 """
 from __future__ import annotations
 
@@ -29,7 +45,7 @@ from . import cuda_build
 from .norms import layer_norm_rows
 
 # per-wrapper count of kernel launches (CUDA path only)
-LAUNCHES = {"B1": 0, "B2": 0, "B3": 0}
+LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0}
 
 _EPI_STORE, _EPI_GEGLU, _EPI_BIAS_RES = 0, 1, 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,22 +72,70 @@ def ln_geglu_plain(x, ls, lb, wi, bi, wo, bo, eps: float) -> torch.Tensor:
     return x + (y + bo.float()).to(x.dtype)
 
 
-def mha_plain(q, k, v, num_heads: int, kv_len: Optional[int],
-              scale: float) -> torch.Tensor:
-    """Attention on the flat (G, M, H*D) layout (pallas _mha_einsum)."""
-    g, m, hd = q.shape
+def _heads(t, num_heads: int):
+    """(G, S, H*D) -> (G, H, S, D) fp32."""
+    g, s, hd = t.shape
+    return t.reshape(g, s, num_heads, hd // num_heads).transpose(1, 2).float()
+
+
+def _logits(q, k, num_heads: int, kv_len: Optional[int], scale: float):
+    """(G, H, M, Sk) fp32 scaled logits, columns >= kv_len at -1e9."""
+    s = (_heads(q, num_heads) @ _heads(k, num_heads).transpose(-1, -2)) * scale
     sk = k.shape[1]
-    d = hd // num_heads
-    qh = q.reshape(g, m, num_heads, d).transpose(1, 2).float()
-    kh = k.reshape(g, sk, num_heads, d).transpose(1, 2).float()
-    vh = v.reshape(g, sk, num_heads, d).transpose(1, 2).float()
-    s = (qh @ kh.transpose(-1, -2)) * scale
     if kv_len is not None and kv_len < sk:
         cols = torch.arange(sk, device=q.device)
         s = torch.where(cols < kv_len, s, torch.full_like(s, -1e9))
+    return s
+
+
+def mha_fwd_plain(q, k, v, num_heads: int, kv_len: Optional[int],
+                  scale: float):
+    """B4 plain: attention on the flat (G, M, H*D) layout -> (o in q.dtype,
+    lse (G, M, H) fp32).  o is pallas `_mha_einsum`; lse is the kernel
+    body's max + log(sum exp) (`_mha_fwd_kernel`)."""
+    g, m, hd = q.shape
+    s = _logits(q, k, num_heads, kv_len, scale)
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    o = (p.float() @ vh).to(q.dtype)
-    return o.transpose(1, 2).reshape(g, m, hd)
+    o = (p.float() @ _heads(v, num_heads)).to(q.dtype)
+    lse = torch.logsumexp(s, dim=-1)                     # (G, H, M)
+    return o.transpose(1, 2).reshape(g, m, hd), lse.transpose(1, 2).contiguous()
+
+
+def mha_plain(q, k, v, num_heads: int, kv_len: Optional[int],
+              scale: float) -> torch.Tensor:
+    """Attention on the flat (G, M, H*D) layout (pallas _mha_einsum)."""
+    return mha_fwd_plain(q, k, v, num_heads, kv_len, scale)[0]
+
+
+def mha_bwd_plain(q, k, v, do, lse, dd, num_heads: int,
+                  kv_len: Optional[int], scale: float):
+    """B5 plain: the body of pallas `_mha_bwd_kernel` -> (dq, dk, dv).
+    P = exp(S - lse); dS = P (dO V^T - dd) scale, rounded to q.dtype, and P
+    rounded to v.dtype, before dQ = dS K, dK = dS^T Q, dV = P^T dO, each
+    accumulated in fp32 and cast once."""
+    g, m, hd = q.shape
+    qh, kh, vh, doh = (_heads(t, num_heads) for t in (q, k, v, do))
+    s = _logits(q, k, num_heads, kv_len, scale)
+    p = torch.exp(s - lse.transpose(1, 2)[..., None])    # (G, H, M, Sk)
+    dpv = doh @ vh.transpose(-1, -2)
+    ds = (p * (dpv - dd.transpose(1, 2)[..., None]) * scale).to(q.dtype)
+    ds = ds.float()
+    pb = p.to(v.dtype).float()
+
+    def flat(t, like):
+        return t.transpose(1, 2).reshape(like.shape).to(like.dtype)
+    return (flat(ds @ kh, q), flat(ds.transpose(-1, -2) @ qh, k),
+            flat(pb.transpose(-1, -2) @ doh, v))
+
+
+def _ln_q(x, ls, lb, wq, eps: float) -> torch.Tensor:
+    """The LN + q-projection prefix of the attention sub-layers."""
+    return _ln(x, ls, lb, eps) @ wq.to(x.dtype).t()
+
+
+def _out_proj(x, o, wo, bo) -> torch.Tensor:
+    y = o.float() @ wo.to(x.dtype).float().t()
+    return x + (y + bo.float()).to(x.dtype)
 
 
 def ln_attn_plain(x, ls, lb, wq, wo, bo, k, v, eps: float, num_heads: int,
@@ -79,11 +143,9 @@ def ln_attn_plain(x, ls, lb, wq, wo, bo, k, v, eps: float, num_heads: int,
     """x (G, M, C) -> x + Wo MHA(Wq LN(x), k, v) + bo; k/v (G, Sk, C)
     pre-projected.  Copy of pallas_fused._ln_attn_reference."""
     c = x.shape[-1]
-    xn = _ln(x, ls, lb, eps)
-    q = xn @ wq.to(x.dtype).t()
+    q = _ln_q(x, ls, lb, wq, eps)
     o = mha_plain(q, k, v, num_heads, kv_len, 1.0 / math.sqrt(c // num_heads))
-    y = o.float() @ wo.to(x.dtype).float().t()
-    return x + (y + bo.float()).to(x.dtype)
+    return _out_proj(x, o, wo, bo)
 
 
 def ln_attn3_plain(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
@@ -148,6 +210,10 @@ def _raise_on(lib, rc: int, what: str):
                            f"({msg})")
 
 
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _gemm(lib, epi, a, lnw, lnb, eps, w, bias, res, out):
     m, k = a.shape
     n = out.shape[1]
@@ -158,49 +224,103 @@ def _gemm(lib, epi, a, lnw, lnb, eps, w, bias, res, out):
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = lib.gemm.asva_ln_gemm(
         _DTYPES[a.dtype], epi, m, n, k, ptr(a), ptr(lnw), ptr(lnb),
-        float(eps), ptr(w), ptr(bias), ptr(res), ptr(out),
-        torch.cuda.current_stream(a.device).cuda_stream)
+        float(eps), ptr(w), ptr(bias), ptr(res), ptr(out), _stream(a))
     _raise_on(lib, rc, "K-gemm")
 
 
-def _ln_attn_cuda(lib, x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len):
-    g, m, c = x.shape
+def _attn_geometry(q, k, v, num_heads: int, kv_len: Optional[int]):
+    """Validate the flat attention layout; -> (g, m, sk, d, kv_len)."""
+    g, m, c = q.shape
     sk = k.shape[1]
-    _check((ls, lb, wq, wo, bo, k, v), x.dtype, x.device)
-    for name, t, shape in (("ls", ls, (c,)), ("lb", lb, (c,)),
-                           ("wq", wq, (c, c)), ("wo", wo, (c, c)),
-                           ("bo", bo, (c,)), ("k", k, (g, sk, c)),
-                           ("v", v, (g, sk, c))):
-        _check_shape(name, t, shape)
+    _check_shape("k", k, (g, sk, c))
+    _check_shape("v", v, (g, sk, c))
     if c % num_heads or (c // num_heads) % 8 or c // num_heads > 160:
         raise ValueError(f"K-attn takes head dims that are multiples of 8 "
                          f"up to 160; got C={c}, H={num_heads}")
     kv_len = sk if kv_len is None else int(kv_len)
     if not 1 <= kv_len <= sk:
         raise ValueError(f"kv_len {kv_len} outside [1, {sk}]")
-    d = c // num_heads
-    q = torch.empty_like(x)
-    _gemm(lib, _EPI_STORE, x.view(g * m, c), ls, lb, eps, wq, None, None,
-          q.view(g * m, c))
-    o = torch.empty_like(x)
-    rc = lib.attn.asva_attn(
-        _DTYPES[x.dtype], g, m, sk, kv_len, num_heads, d,
-        1.0 / math.sqrt(d), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    return g, m, sk, c // num_heads, kv_len
+
+
+def _mha_fwd_cuda(lib, q, k, v, num_heads, kv_len, scale, with_lse: bool):
+    """K-attn on checked tensors -> (o, lse or None)."""
+    g, m, sk, d, kv_len = _attn_geometry(q, k, v, num_heads, kv_len)
+    o = torch.empty_like(q)
+    lse = (torch.empty((g, m, num_heads), dtype=torch.float32,
+                       device=q.device) if with_lse else None)
+    rc = lib.attn.asva_mha_fwd(
+        _DTYPES[q.dtype], g, m, sk, kv_len, num_heads, d, float(scale),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), _stream(q))
     _raise_on(lib, rc, "K-attn")
-    out = torch.empty_like(x)
-    _gemm(lib, _EPI_BIAS_RES, o.view(g * m, c), None, None, 0.0, wo, bo,
-          x.view(g * m, c), out.view(g * m, c))
+    return o, lse
+
+
+def mha_fwd(q, k, v, num_heads: int, kv_len: Optional[int], scale: float):
+    """B4: q (G, M, H*D), k/v (G, Sk, H*D) -> (o, lse (G, M, H) fp32)."""
+    if q.device.type == "cpu":
+        return mha_fwd_plain(q, k, v, num_heads, kv_len, scale)
+    lib = _prepare(q, k, v)
+    out = _mha_fwd_cuda(lib, q, k, v, num_heads, kv_len, scale, True)
+    LAUNCHES["B4"] += 1
     return out
 
 
-# --------------------------------------------------------------------------
-# public wrappers
-# --------------------------------------------------------------------------
+def mha_bwd(q, k, v, do, lse, dd, num_heads: int, kv_len: Optional[int],
+            scale: float, need_dkv: bool = True):
+    """B5: -> (dq, dk, dv) in the dtypes of (q, k, v); dk and dv are None
+    when `need_dkv` is false (K/V that need no gradient)."""
+    if q.device.type == "cpu":
+        dq, dk, dv = mha_bwd_plain(q, k, v, do, lse, dd, num_heads, kv_len,
+                                   scale)
+        return (dq, dk, dv) if need_dkv else (dq, None, None)
+    lib = _prepare(q, k, v, do)
+    g, m, sk, d, kv_len = _attn_geometry(q, k, v, num_heads, kv_len)
+    _check_shape("do", do, q.shape)
+    _check((lse, dd), torch.float32, q.device)
+    _check_shape("lse", lse, (g, m, num_heads))
+    _check_shape("dd", dd, (g, m, num_heads))
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k) if need_dkv else None
+    dv = torch.empty_like(v) if need_dkv else None
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    rc = lib.attn_bwd.asva_mha_bwd(
+        _DTYPES[q.dtype], g, m, sk, kv_len, num_heads, d, float(scale),
+        ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(dd), ptr(dq), ptr(dk),
+        ptr(dv), _stream(q))
+    _raise_on(lib, rc, "attention backward")
+    LAUNCHES["B5"] += 1
+    return dq, dk, dv
 
-def fused_ln_geglu(x, ls, lb, wi, bi, wo, bo, eps: float) -> torch.Tensor:
-    """B3: x (M, C) -> x + FF(LN(x)).  ls/lb (C,), wi (2*inner, C) with
-    [value; gate] rows, bi (2*inner,), wo (C, inner), bo (C,)."""
+
+def _check_sublayer(x, ls, lb, wq, wo, bo, k, v):
+    c = x.shape[-1]
+    _check((ls, lb, wq, wo, bo, k, v), x.dtype, x.device)
+    for name, t, shape in (("ls", ls, (c,)), ("lb", lb, (c,)),
+                           ("wq", wq, (c, c)), ("wo", wo, (c, c)),
+                           ("bo", bo, (c,))):
+        _check_shape(name, t, shape)
+
+
+def _ln_attn_cuda(lib, x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len,
+                  with_lse: bool = False):
+    """K-gemm(LN, q) -> K-attn -> K-gemm(+bo, +x) -> (out, o, lse)."""
+    g, m, c = x.shape
+    _check_sublayer(x, ls, lb, wq, wo, bo, k, v)
+    _attn_geometry(x, k, v, num_heads, kv_len)   # before the first launch
+    q = torch.empty_like(x)
+    _gemm(lib, _EPI_STORE, x.view(g * m, c), ls, lb, eps, wq, None, None,
+          q.view(g * m, c))
+    o, lse = _mha_fwd_cuda(lib, q, k, v, num_heads, kv_len,
+                           1.0 / math.sqrt(c // num_heads), with_lse)
+    out = torch.empty_like(x)
+    _gemm(lib, _EPI_BIAS_RES, o.view(g * m, c), None, None, 0.0, wo, bo,
+          x.view(g * m, c), out.view(g * m, c))
+    return out, o, lse
+
+
+def _ln_geglu_fwd(x, ls, lb, wi, bi, wo, bo, eps):
     if x.device.type == "cpu":
         return ln_geglu_plain(x, ls, lb, wi, bi, wo, bo, eps)
     lib = _prepare(x, ls, lb, wi, bi, wo, bo)
@@ -218,28 +338,27 @@ def fused_ln_geglu(x, ls, lb, wi, bi, wo, bo, eps: float) -> torch.Tensor:
     return out
 
 
-def fused_ln_attn(x, ls, lb, wq, wo, bo, k, v, eps: float, num_heads: int,
-                  kv_len: Optional[int] = None) -> torch.Tensor:
-    """B1: x (G, M, C) -> x + Wo MHA(Wq LN(x), k, v) + bo.  wq/wo (C, C)
-    in Linear layout, k/v (G, Sk, C) pre-projected; key columns >= kv_len
-    are masked (None: all Sk)."""
+def _ln_attn_fwd(x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len,
+                 with_lse: bool):
+    """-> (out, o, lse).  With `with_lse` the attention runs as B4 and lse
+    is kept for the backward; o is the same bits either way."""
     if x.device.type == "cpu":
-        return ln_attn_plain(x, ls, lb, wq, wo, bo, k, v, eps, num_heads,
-                             kv_len)
+        q = _ln_q(x, ls, lb, wq, eps)
+        o, lse = mha_fwd_plain(q, k, v, num_heads, kv_len,
+                               1.0 / math.sqrt(x.shape[-1] // num_heads))
+        return _out_proj(x, o, wo, bo), o, lse
     lib = _prepare(x)
     out = _ln_attn_cuda(lib, x, ls, lb, wq, wo, bo, k, v, eps, num_heads,
-                        kv_len)
+                        kv_len, with_lse)
     LAUNCHES["B1"] += 1
+    if with_lse:
+        LAUNCHES["B4"] += 1
     return out
 
 
-def fused_ln_attn3(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
-                   lsa, lba, wqa, woa, boa, ka, va,
-                   lst, lbt, wqt, wot, bot, kt, vt,
-                   eps3: Sequence[float], num_heads: int,
-                   kv_lens: Sequence[Optional[int]] = (None, None, None)):
-    """B2: attn1 + audio-x + text-x on x (B, F, N, C); see ln_attn3_plain
-    for the K/V layouts."""
+def _ln_attn3_fwd(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
+                  lsa, lba, wqa, woa, boa, ka, va,
+                  lst, lbt, wqt, wot, bot, kt, vt, eps3, num_heads, kv_lens):
     if x.device.type == "cpu":
         return ln_attn3_plain(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
                               lsa, lba, wqa, woa, boa, ka, va,
@@ -250,13 +369,190 @@ def fused_ln_attn3(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
     if ka.dim() != 4 or tuple(ka.shape[:2]) != (b, f):
         raise ValueError(f"audio K/V must be (B, F, Ska, C), got "
                          f"{tuple(ka.shape)}")
-    h = _ln_attn_cuda(lib, x.reshape(b, f * n, c), ls1, lb1, wq1, wo1, bo1,
-                      k1, v1, eps3[0], num_heads, kv_lens[0])
-    h = _ln_attn_cuda(lib, h.view(b * f, n, c), lsa, lba, wqa, woa, boa,
-                      ka.reshape((b * f,) + ka.shape[2:]),
-                      va.reshape((b * f,) + va.shape[2:]),
-                      eps3[1], num_heads, kv_lens[1])
-    h = _ln_attn_cuda(lib, h.view(b, f * n, c), lst, lbt, wqt, wot, bot,
-                      kt, vt, eps3[2], num_heads, kv_lens[2])
+    h, _, _ = _ln_attn_cuda(lib, x.reshape(b, f * n, c), ls1, lb1, wq1, wo1,
+                            bo1, k1, v1, eps3[0], num_heads, kv_lens[0])
+    h, _, _ = _ln_attn_cuda(lib, h.view(b * f, n, c), lsa, lba, wqa, woa, boa,
+                            ka.reshape((b * f,) + ka.shape[2:]),
+                            va.reshape((b * f,) + va.shape[2:]),
+                            eps3[1], num_heads, kv_lens[1])
+    h, _, _ = _ln_attn_cuda(lib, h.view(b, f * n, c), lst, lbt, wqt, wot, bot,
+                            kt, vt, eps3[2], num_heads, kv_lens[2])
     LAUNCHES["B2"] += 1
     return h.view(b, f, n, c)
+
+
+# --------------------------------------------------------------------------
+# autograd rules
+# --------------------------------------------------------------------------
+
+def _head_rowsum(a, b, num_heads: int) -> torch.Tensor:
+    """Per-head rowsum(a * b) in fp32: (G, M, H*D) -> (G, M, H).  With a = dO
+    and b = O this is the flash identity rowsum(dP * P)."""
+    g, m, hd = a.shape
+    shape = (g, m, num_heads, hd // num_heads)
+    return (a.float().reshape(shape) * b.float().reshape(shape)).sum(-1)
+
+
+def _plain_vjp(fn, tensors, needs, grad_out):
+    """Gradients of fn(*tensors), recomputed under enable_grad, for the
+    inputs that need one (None elsewhere)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(bool(n))
+                  for t, n in zip(tensors, needs)]
+        out = fn(*leaves)
+    wanted = [t for t in leaves if t.requires_grad]
+    grads = iter(torch.autograd.grad(out, wanted, grad_out) if wanted else ())
+    return tuple(next(grads) if t.requires_grad else None for t in leaves)
+
+
+class _MhaKvShared(torch.autograd.Function):
+    """pallas_fused.mha_kvshared (:834): forward B4, backward dd + B5."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, kv_len, scale):
+        o, lse = mha_fwd(q, k, v, num_heads, kv_len, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.statics = (num_heads, kv_len, scale)
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        num_heads, kv_len, scale = ctx.statics
+        dd = _head_rowsum(g, o, num_heads)
+        need = ctx.needs_input_grad
+        dq, dk, dv = mha_bwd(q, k, v, g.to(q.dtype).contiguous(), lse, dd,
+                             num_heads, kv_len, scale, need[1] or need[2])
+        return dq, dk, dv, None, None, None
+
+
+class _LnAttn(torch.autograd.Function):
+    """pallas_fused.fused_ln_attn's differentiated form (_attn_fwd :366,
+    _attn_bwd :399)."""
+
+    @staticmethod
+    def forward(ctx, x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len):
+        out, o, lse = _ln_attn_fwd(x, ls, lb, wq, wo, bo, k, v, eps,
+                                   num_heads, kv_len,
+                                   with_lse=any(ctx.needs_input_grad))
+        ctx.save_for_backward(x, ls, lb, wq, wo, bo, k, v, o, lse)
+        ctx.statics = (eps, num_heads, kv_len)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        x, ls, lb, wq, wo, bo, k, v, o, lse = ctx.saved_tensors
+        eps, num_heads, kv_len = ctx.statics
+        need = ctx.needs_input_grad
+        c = x.shape[-1]
+        # only the LN + q-projection prefix is recomputed, for q and its vjp
+        with torch.enable_grad():
+            prefix_in = [t.detach().requires_grad_(bool(n))
+                         for t, n in zip((x, ls, lb, wq), need[:4])]
+            q = _ln_q(*prefix_in, eps)
+        g32 = g.float()
+        # out = x + cast(o @ wo^T + bo): do in fp32, then cast to x.dtype
+        do = (g32 @ wo.float()).to(x.dtype)
+        dwo = dbo = None
+        if need[4]:
+            dwo = (g32.reshape(-1, c).t() @ o.float().reshape(-1, c)
+                   ).to(wo.dtype)
+        if need[5]:
+            dbo = g32.sum(dim=(0, 1)).to(bo.dtype)
+        dd = _head_rowsum(do, o, num_heads)
+        dq, dk, dv = mha_bwd(q.detach(), k, v, do, lse, dd, num_heads, kv_len,
+                             1.0 / math.sqrt(c // num_heads),
+                             need[6] or need[7])
+        wanted = [t for t in prefix_in if t.requires_grad]
+        grads = iter(torch.autograd.grad(q, wanted, dq) if wanted else ())
+        dx, dls, dlb, dwq = (next(grads) if t.requires_grad else None
+                             for t in prefix_in)
+        if dx is not None:
+            dx = g + dx
+        return dx, dls, dlb, dwq, dwo, dbo, dk, dv, None, None, None
+
+
+class _LnGeglu(torch.autograd.Function):
+    """pallas_fused.fused_ln_geglu: kernel forward, backward through the
+    plain composite (_ff_bwd :176)."""
+
+    @staticmethod
+    def forward(ctx, x, ls, lb, wi, bi, wo, bo, eps):
+        ctx.save_for_backward(x, ls, lb, wi, bi, wo, bo)
+        ctx.eps = eps
+        return _ln_geglu_fwd(x, ls, lb, wi, bi, wo, bo, eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        eps = ctx.eps
+        return _plain_vjp(lambda *a: ln_geglu_plain(*a, eps),
+                          ctx.saved_tensors, ctx.needs_input_grad, g) + (None,)
+
+
+class _LnAttn3(torch.autograd.Function):
+    """pallas_fused.fused_ln_attn3: kernel forward, backward through the
+    plain composite (_attn3_bwd :566)."""
+
+    @staticmethod
+    def forward(ctx, eps3, num_heads, kv_lens, *tensors):
+        ctx.save_for_backward(*tensors)
+        ctx.statics = (eps3, num_heads, kv_lens)
+        return _ln_attn3_fwd(*tensors, eps3, num_heads, kv_lens)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        statics = ctx.statics
+        return (None, None, None) + _plain_vjp(
+            lambda *a: ln_attn3_plain(*a, *statics), ctx.saved_tensors,
+            ctx.needs_input_grad[3:], g)
+
+
+# --------------------------------------------------------------------------
+# public wrappers
+# --------------------------------------------------------------------------
+
+def _cast(x, *params):
+    """Parameters cast at use to the activation dtype."""
+    return tuple(p.to(x.dtype) for p in params)
+
+
+def mha_kvshared(q, k, v, num_heads: int, kv_len: Optional[int],
+                 scale: float) -> torch.Tensor:
+    """Differentiable attention on the flat layout: q (G, M, H*D), k/v
+    (G, Sk, H*D) pre-projected -> o (G, M, H*D).  Forward B4, backward B5."""
+    return _MhaKvShared.apply(q, k, v, num_heads, kv_len, scale)
+
+
+def fused_ln_geglu(x, ls, lb, wi, bi, wo, bo, eps: float) -> torch.Tensor:
+    """B3: x (M, C) -> x + FF(LN(x)).  ls/lb (C,), wi (2*inner, C) with
+    [value; gate] rows, bi (2*inner,), wo (C, inner), bo (C,)."""
+    args = (x,) + _cast(x, ls, lb, wi, bi, wo, bo)
+    return _LnGeglu.apply(*args, eps)
+
+
+def fused_ln_attn(x, ls, lb, wq, wo, bo, k, v, eps: float, num_heads: int,
+                  kv_len: Optional[int] = None) -> torch.Tensor:
+    """B1: x (G, M, C) -> x + Wo MHA(Wq LN(x), k, v) + bo.  wq/wo (C, C)
+    in Linear layout, k/v (G, Sk, C) pre-projected; key columns >= kv_len
+    are masked (None: all Sk).  When a gradient is needed the attention runs
+    as B4 and the backward as B5."""
+    args = (x,) + _cast(x, ls, lb, wq, wo, bo) + (k, v)
+    return _LnAttn.apply(*args, eps, num_heads, kv_len)
+
+
+def fused_ln_attn3(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
+                   lsa, lba, wqa, woa, boa, ka, va,
+                   lst, lbt, wqt, wot, bot, kt, vt,
+                   eps3: Sequence[float], num_heads: int,
+                   kv_lens: Sequence[Optional[int]] = (None, None, None)):
+    """B2: attn1 + audio-x + text-x on x (B, F, N, C); see ln_attn3_plain
+    for the K/V layouts."""
+    args = ((x,) + _cast(x, ls1, lb1, wq1, wo1, bo1) + (k1, v1)
+            + _cast(x, lsa, lba, wqa, woa, boa) + (ka, va)
+            + _cast(x, lst, lbt, wqt, wot, bot) + (kt, vt))
+    eps3, kv_lens = tuple(eps3), tuple(kv_lens)
+    return _LnAttn3.apply(eps3, num_heads, kv_lens, *args)

@@ -4,6 +4,14 @@ Builders create the full-size modules with seeded random parameters drawn
 from an explicit `torch.Generator` on the target device.  No released
 weights ship with the repository; the modules use the reference's torch key
 space, so such weights load later with `load_state_dict(strict=True)`.
+
+Every `build_*` function and `load_animation_pipeline` runs on the CUDA card
+unless the caller passes device="cpu".
+An inference build stores every parameter in `dtype`, frozen, in eval mode.
+A training build (`build_unet(..., train=True)`) keeps fp32 parameters with
+`dtype` as the compute dtype (cast at use, as asva_tpu trains), leaves
+`requires_grad` to `training.optim.apply_trainable_mask` and stays in train
+mode.
 """
 from __future__ import annotations
 
@@ -61,23 +69,30 @@ def init_parameters_(module: nn.Module, generator: torch.Generator,
     return module
 
 
-def _build(factory, device, dtype, seed: int, randomize_all: bool):
+def _build(factory, device, dtype, seed: int, randomize_all: bool,
+           train: bool = False):
     with torch.device("meta"):
         module = factory()
     module = module.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     init_parameters_(module, gen, randomize_all)
+    if train:
+        return module.train()
     return module.to(dtype).eval().requires_grad_(False)
 
 
-def build_unet(config: UNet3DConfig = UNet3DConfig(), device="cpu",
+def build_unet(config: UNet3DConfig = UNet3DConfig(), device="cuda",
                dtype=torch.bfloat16, seed: int = 0,
-               randomize_all: bool = False) -> AudioUNet3D:
-    return _build(lambda: AudioUNet3D(config), device, dtype, seed,
-                  randomize_all)
+               randomize_all: bool = False,
+               train: bool = False) -> AudioUNet3D:
+    """train=True: fp32 parameters that all require grad, `dtype` as the
+    compute dtype, train mode; the values are those of the inference build
+    before its cast to `dtype`."""
+    return _build(lambda: AudioUNet3D(config, compute_dtype=dtype), device,
+                  dtype, seed, randomize_all, train)
 
 
-def build_vae(config: VAEConfig = VAEConfig(), device="cpu",
+def build_vae(config: VAEConfig = VAEConfig(), device="cuda",
               dtype=torch.bfloat16, seed: int = 1,
               randomize_all: bool = False) -> AutoencoderKL:
     return _build(lambda: AutoencoderKL(config), device, dtype, seed,
@@ -86,7 +101,7 @@ def build_vae(config: VAEConfig = VAEConfig(), device="cpu",
 
 def build_audio_encoder(n_segment: int = 12,
                         config: Optional[ImageBindAudioConfig] = None,
-                        device="cpu", dtype=torch.bfloat16, seed: int = 2,
+                        device="cuda", dtype=torch.bfloat16, seed: int = 2,
                         randomize_all: bool = False) -> SegmaskAudioEncoder:
     cfg = config or ImageBindAudioConfig()
     return _build(lambda: SegmaskAudioEncoder(cfg, n_segment), device, dtype,
@@ -116,7 +131,7 @@ def load_module_configs(checkpoint_modules_dir: Optional[str]):
 
 def load_animation_pipeline(
         checkpoint_modules_dir: Optional[str] = None,
-        n_segment: int = 12, device="cpu", dtype=torch.bfloat16,
+        n_segment: int = 12, device="cuda", dtype=torch.bfloat16,
         unet_config: Optional[UNet3DConfig] = None,
         vae_config: Optional[VAEConfig] = None,
         seed: int = 0, randomize_all: bool = False,

@@ -2,14 +2,21 @@
 """Drive the PyTorch port (asva_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py            # needs one NVIDIA H100 (sm_90a)
+    python3 chip_smoke.py --profile  # build + one generation request and one
+                                     # training step under torch.profiler
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. build    — nvcc the kernels in asva_tpu_torch/csrc (one process per
                 source, in parallel) into the git-ignored build directory;
-  2. kernels  — each kernel (B1 fused_ln_attn, B2 fused_ln_attn3, B3
-                fused_ln_geglu) against its plain PyTorch version on the
-                card at every SD1.5 level's shapes, fp32 and bf16, with
-                median times of both (CUDA events, after warm-up);
+  2. kernels  — each kernel against its plain PyTorch version on the card,
+                fp32 and bf16, with median times of both (CUDA events, after
+                warm-up): B1 fused_ln_attn, B2 fused_ln_attn3, B3
+                fused_ln_geglu at every SD1.5 level's generation shapes
+                (2 clips), their input and parameter gradients against
+                autograd of the plain versions, and B4 mha_fwd (o, lse) and
+                B5 mha_bwd (dq, dk, dv) at every level's training shapes
+                (batch 4 of 12 frames: attn1, audio, text), beside one
+                scaled_dot_product_attention call as a yardstick;
   3. unet     — the full-width UNet3DConfig() (seeded random weights, every
                 parameter randomised), x (2, 12, 32, 32, 4): fuse_blocks=True
                 (B2 + B3) vs fuse_blocks=False (B1 + B3) vs all-plain, in
@@ -19,17 +26,36 @@ Phases, in order; any failure exits non-zero and prints no result:
                 audio, own seed, DDIM 5 steps, audio guidance 4.0, decode
                 on): shape, finite, [0, 1], frame 0 pinned; this is the
                 B2 + B3 path.  The first request's latents are then held
-                against the plain sub-layers in bf16 and in fp32.
+                against the plain sub-layers in bf16 and in fp32;
+  5. train    — AnimationTrainer at full width (SD1.5 UNet with remat as the
+                training config has it, VAE, audio tower; fp32 trainable and
+                bf16 frozen parameters, bf16 compute; AdamW lr 1e-4, weight
+                decay 1e-2, clip 1.0) takes 4 steps on a seeded batch of 4
+                clips of 12 256x256 frames with 2 s of audio: finite losses,
+                a finite non-zero gradient for every trainable parameter,
+                none for a frozen one, frozen parameters bit-identical
+                after the steps, B4 and B5 launched at least 48 times a step
+                and B2 never; this is the B4 + B5 path.  Then one save and
+                restore_latest through the CheckpointManager, and at batch 1
+                in fp32 the loss and the trainable gradients with kernels
+                against those with the plain sub-layers.
 Launch counters are zeroed just before each path run and read just after.
 
-Tolerances (max |kernel - plain| over the output):
+Tolerances (max |kernel - plain| over an output):
   fp32  <= 1e-4 * max(1, max|plain|): fp32 products; only the summation
         order and the online-softmax normalisation differ;
   bf16  <= 2**-6 * max|plain|, i.e. two bf16 ulps at the output's largest
-        magnitude: the kernels round q, P and h to bf16 where the Pallas
+        magnitude: the kernels round q, P, dS and h to bf16 where the Pallas
         kernels do, the plain versions where the JAX composites do, and
-        the online softmax rounds P before normalising.
-The UNet tolerances are stated beside its checks below.
+        the online softmax rounds P before normalising;
+  gradients through a whole wrapper in bf16 <= 2**-5 * max|plain gradient|
+        (the forward's and the backward's roundings stack).
+The UNet, pipeline and training tolerances are stated beside their checks.
+
+bound_ms is the least time the card could take for the timed call: the
+larger of its bytes (each input read once, each output written once) over
+3.35 TB/s and its operations over the peak for its type (989 TFLOP/s bf16,
+67 TFLOP/s fp32), the published rates of an H100 SXM at 700 W.
 
 Output: the kernels line, the card line (nvidia-smi name, power limit), and
 last the device line {"ok": true, "device": {...}}.  Details go to
@@ -39,9 +65,11 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -49,7 +77,11 @@ SD_LEVELS = {"32x32": (1024, 320), "16x16": (256, 640), "8x8": (64, 1280),
              "4x4": (16, 1280)}
 B, F, HEADS = 2, 12, 8          # 2 CFG clips of 12 frames, SD1.5 heads
 AUDIO_TOKENS, TEXT_TOKENS = 25, 77
+TRAIN_B = 4                     # clips per training batch
 TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -5}
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 KERNELS = {
     "B1": ("asva_tpu/ops/pallas_fused.py:304", "pallas_fused._ln_attn_flat",
            ["asva_tpu_torch/csrc/attn.cu", "asva_tpu_torch/csrc/gemm.cu"]),
@@ -57,7 +89,16 @@ KERNELS = {
            ["asva_tpu_torch/csrc/attn.cu", "asva_tpu_torch/csrc/gemm.cu"]),
     "B3": ("asva_tpu/ops/pallas_fused.py:123", "pallas_fused._ln_geglu_flat",
            ["asva_tpu_torch/csrc/gemm.cu"]),
+    "B4": ("asva_tpu/ops/pallas_fused.py:759", "pallas_fused._mha_fwd_flat",
+           ["asva_tpu_torch/csrc/attn.cu"]),
+    "B5": ("asva_tpu/ops/pallas_fused.py:785", "pallas_fused._mha_bwd_flat",
+           ["asva_tpu_torch/csrc/attn_bwd.cu"]),
 }
+# the case whose bf16 times go into the kernels line
+TIMED_CASE = {"B1": "attn1 32x32", "B2": "attn3 32x32", "B3": "ff 32x32",
+              "B4": "attn1 32x32", "B5": "attn1 32x32"}
+# B1 and B3 also run on the training path: their bf16 times at its shapes
+TRAIN_TIMED_CASE = {"B1": "train attn1 32x32", "B3": "train ff 32x32"}
 
 
 def log(msg: str) -> None:
@@ -100,30 +141,43 @@ def _sub(gen, c, dtype):
             _rand(gen, (c, c), dtype, c ** -0.5), _rand(gen, (c,), dtype, 0.1)]
 
 
+def _attn_flops(g, m, sk, c):
+    """One attention sub-layer on x (g, m, c): q and out projections plus
+    QK^T and PV."""
+    return 4 * g * m * c * c + 4 * g * m * sk * c
+
+
 def kernel_cases(gen, dtype):
-    """(kernel, label, wrapper args, plain fn) at the SD1.5 shapes."""
+    """(kernel, label, wrapper, args, plain fn, operations) for B1-B3 at
+    the shapes the driven paths give them at the SD1.5 levels: generation
+    (2 clips; B1, B2, B3) and training (batch 4; B1 and B3, labelled
+    "train")."""
     from asva_tpu_torch.ops import fused
     cases = []
-    for level in ("32x32", "16x16", "8x8"):          # FF at C = 320/640/1280
-        n, c = SD_LEVELS[level]
-        args = [_rand(gen, (B * F * n, c), dtype),
-                _rand(gen, (c,), dtype, 0.1, 1.0), _rand(gen, (c,), dtype, 0.1),
-                _rand(gen, (8 * c, c), dtype, c ** -0.5),
-                _rand(gen, (8 * c,), dtype, 0.1),
-                _rand(gen, (c, 4 * c), dtype, (4 * c) ** -0.5),
-                _rand(gen, (c,), dtype, 0.1), 1e-5]
-        cases.append(("B3", f"ff {level} C={c}", fused.fused_ln_geglu, args,
-                      fused.ln_geglu_plain))
-    for level in ("32x32", "8x8"):
-        n, c = SD_LEVELS[level]
-        for name, g, m, sk in (("attn1", B, F * n, n),
-                               ("audio", B * F, n, AUDIO_TOKENS),
-                               ("text", B, F * n, TEXT_TOKENS)):
-            args = ([_rand(gen, (g, m, c), dtype)] + _sub(gen, c, dtype)
-                    + [_rand(gen, (g, sk, c), dtype),
-                       _rand(gen, (g, sk, c), dtype), 1e-5, HEADS])
-            cases.append(("B1", f"{name} {level} C={c} Sk={sk}",
-                          fused.fused_ln_attn, args, fused.ln_attn_plain))
+    for prefix, b in (("", B), ("train ", TRAIN_B)):
+        for level in ("32x32", "16x16", "8x8"):      # FF at C = 320/640/1280
+            n, c = SD_LEVELS[level]
+            args = [_rand(gen, (b * F * n, c), dtype),
+                    _rand(gen, (c,), dtype, 0.1, 1.0),
+                    _rand(gen, (c,), dtype, 0.1),
+                    _rand(gen, (8 * c, c), dtype, c ** -0.5),
+                    _rand(gen, (8 * c,), dtype, 0.1),
+                    _rand(gen, (c, 4 * c), dtype, (4 * c) ** -0.5),
+                    _rand(gen, (c,), dtype, 0.1), 1e-5]
+            cases.append(("B3", f"{prefix}ff {level} C={c} M={b * F * n}",
+                          fused.fused_ln_geglu, args, fused.ln_geglu_plain,
+                          24 * b * F * n * c * c))
+        for level in ("32x32", "8x8"):
+            n, c = SD_LEVELS[level]
+            for name, g, m, sk in (("attn1", b, F * n, n),
+                                   ("audio", b * F, n, AUDIO_TOKENS),
+                                   ("text", b, F * n, TEXT_TOKENS)):
+                args = ([_rand(gen, (g, m, c), dtype)] + _sub(gen, c, dtype)
+                        + [_rand(gen, (g, sk, c), dtype),
+                           _rand(gen, (g, sk, c), dtype), 1e-5, HEADS])
+                cases.append(("B1", f"{prefix}{name} {level} C={c} G={g} "
+                              f"Sk={sk}", fused.fused_ln_attn, args,
+                              fused.ln_attn_plain, _attn_flops(g, m, sk, c)))
     for level, (n, c) in SD_LEVELS.items():
         args = [_rand(gen, (B, F, n, c), dtype)]
         for kv_shape in ((B, n, c), (B, F, AUDIO_TOKENS, c),
@@ -131,9 +185,103 @@ def kernel_cases(gen, dtype):
             args += _sub(gen, c, dtype) + [_rand(gen, kv_shape, dtype),
                                            _rand(gen, kv_shape, dtype)]
         args += [(1e-5,) * 3, HEADS]
+        flops = (_attn_flops(B, F * n, n, c)
+                 + _attn_flops(B * F, n, AUDIO_TOKENS, c)
+                 + _attn_flops(B, F * n, TEXT_TOKENS, c))
         cases.append(("B2", f"attn3 {level} C={c}", fused.fused_ln_attn3,
-                      args, fused.ln_attn3_plain))
+                      args, fused.ln_attn3_plain, flops))
     return cases
+
+
+def flash_cases(gen, dtype):
+    """(kernel, label, wrapper, args, plain fn, operations) for B4 and B5
+    at the training shapes of every SD1.5 level: batch 4 of 12 frames."""
+    from asva_tpu_torch.ops import fused
+    cases = []
+    for level, (n, c) in SD_LEVELS.items():
+        for name, g, m, sk in (("attn1", TRAIN_B, F * n, n),
+                               ("audio", TRAIN_B * F, n, AUDIO_TOKENS),
+                               ("text", TRAIN_B, F * n, TEXT_TOKENS)):
+            scale = 1.0 / math.sqrt(c // HEADS)
+            q, k, v, do = (_rand(gen, shape, dtype) for shape in
+                           ((g, m, c), (g, sk, c), (g, sk, c), (g, m, c)))
+            o, lse = fused.mha_fwd_plain(q, k, v, HEADS, None, scale)
+            dd = fused._head_rowsum(do, o, HEADS)
+            del o
+            label = f"{name} {level} G={g} M={m} Sk={sk} d={c // HEADS}"
+            cases.append(("B4", label, fused.mha_fwd,
+                          [q, k, v, HEADS, None, scale], fused.mha_fwd_plain,
+                          4 * g * m * sk * c))
+            cases.append(("B5", label, fused.mha_bwd,
+                          [q, k, v, do, lse, dd, HEADS, None, scale],
+                          fused.mha_bwd_plain, 10 * g * m * sk * c))
+    return cases
+
+
+def _tensors(x):
+    import torch
+    if torch.is_tensor(x):
+        return [x]
+    return [t for t in x if torch.is_tensor(t)]
+
+
+def _compare(out, ref, dname, table=TOL):
+    """Worst (error, tolerance, |ref|max) over the outputs, by error over
+    tolerance; every output must also be finite."""
+    import torch
+    worst = None
+    for a, b in zip(_tensors(out), _tensors(ref)):
+        a, b = a.float(), b.float()
+        scale = b.abs().max().item()
+        tol = table[dname] * (max(1.0, scale) if dname == "float32" else scale)
+        err = (a - b).abs().max().item()
+        if not bool(torch.isfinite(a).all()):
+            err = float("inf")
+        if worst is None or err * worst[1] > worst[0] * tol:
+            worst = (err, tol, scale)
+    return worst
+
+
+def sdpa_ms(kernel, args):
+    """One scaled_dot_product_attention call (forward for B4, its autograd
+    backward for B5) on the same q, k, v in its own (G, H, S, D) layout: a
+    yardstick only, the port never calls it."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    q, k, v = args[:3]
+    scale = args[-1]
+
+    def heads(t):
+        g, s, c = t.shape
+        return t.reshape(g, s, HEADS, c // HEADS).transpose(1, 2).contiguous()
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    if kernel == "B4":
+        with torch.no_grad():
+            return time_ms(lambda: sdpa(qh, kh, vh, scale=scale))
+    leaves = [t.requires_grad_(True) for t in (qh, kh, vh)]
+    out = sdpa(*leaves, scale=scale)
+    do = heads(args[3])
+    return time_ms(lambda: torch.autograd.grad(out, leaves, do,
+                                               retain_graph=True))
+
+
+def gradient_check(wrapper, plain, args, dname):
+    """The wrapper's input and parameter gradients against autograd of its
+    plain version, for one random cotangent."""
+    import torch
+    leaves = [a.detach().requires_grad_(True) if torch.is_tensor(a) else a
+              for a in args]
+    inputs = _tensors(leaves)
+    out = wrapper(*leaves)
+    if out.grad_fn is None:
+        fail("a wrapper returned a tensor without a grad_fn for inputs that "
+             "require grad")
+    w = torch.randn(out.shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(5))
+    got = torch.autograd.grad((out.float() * w).sum(), inputs)
+    del out
+    want = torch.autograd.grad((plain(*leaves).float() * w).sum(), inputs)
+    return _compare(got, want, dname, GRAD_TOL)
 
 
 def phase_kernels(report):
@@ -142,25 +290,46 @@ def phase_kernels(report):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for kernel, label, wrapper, args, plain in kernel_cases(gen, dtype):
-            out = wrapper(*args)
-            ref = plain(*args)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            scale = ref.float().abs().max().item()
-            tol = TOL[dname] * (max(1.0, scale) if dname == "float32"
-                                else scale)
-            ok = bool(torch.isfinite(out).all().item()) and err <= tol
-            ms = time_ms(lambda: wrapper(*args))
-            plain_ms = time_ms(lambda: plain(*args))
-            rows.append(dict(kernel=kernel, case=label, dtype=dname,
-                             max_abs_err=err, tol=tol, max_abs_ref=scale,
-                             ms=ms, plain_ms=plain_ms, ok=ok))
-            log(f"  {kernel} {dname:8s} {label:28s} err {err:.3e} "
-                f"(tol {tol:.3e})  kernel {ms:8.3f} ms  plain "
-                f"{plain_ms:8.3f} ms  {'ok' if ok else 'FAIL'}")
-            del out, ref
-        torch.cuda.empty_cache()
+        for make in (kernel_cases, flash_cases):
+            for kernel, label, wrapper, args, plain, flops in make(gen, dtype):
+                with torch.no_grad():
+                    out = wrapper(*args)
+                    ref = plain(*args)
+                torch.cuda.synchronize()
+                err, tol, scale = _compare(out, ref, dname)
+                nbytes = sum(t.numel() * t.element_size()
+                             for t in _tensors(args) + _tensors(out))
+                del out, ref
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_FLOPS[dname] * 1e3
+                row = dict(kernel=kernel, case=label, dtype=dname,
+                           max_abs_err=err, tol=tol, max_abs_ref=scale,
+                           ok=err <= tol, bytes=nbytes, operations=flops,
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops
+                           else "operations", library_ms=None)
+                with torch.no_grad():
+                    row["ms"] = time_ms(lambda: wrapper(*args))
+                    row["plain_ms"] = time_ms(lambda: plain(*args), 1, 3)
+                if kernel in ("B4", "B5"):
+                    if dname == "bfloat16":
+                        row["library_ms"] = sdpa_ms(kernel, args)
+                else:
+                    g_err, g_tol, _ = gradient_check(wrapper, plain, args,
+                                                     dname)
+                    row.update(grad_max_abs_err=g_err, grad_tol=g_tol)
+                    row["ok"] = row["ok"] and g_err <= g_tol
+                rows.append(row)
+                grad = (f"  grad err {row['grad_max_abs_err']:.3e} (tol "
+                        f"{row['grad_tol']:.3e})" if "grad_tol" in row else "")
+                lib = (f"  sdpa {row['library_ms']:.3f} ms"
+                       if row["library_ms"] is not None else "")
+                log(f"  {kernel} {dname:8s} {label:44s} err {err:.3e} (tol "
+                    f"{tol:.3e}){grad}  kernel {row['ms']:8.3f} ms  plain "
+                    f"{row['plain_ms']:8.3f} ms  bound {row['bound_ms']:.4f} "
+                    f"ms ({row['bound_by']}){lib}  "
+                    f"{'ok' if row['ok'] else 'FAIL'}")
+            torch.cuda.empty_cache()
     report["kernels"] = rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -387,6 +556,301 @@ def phase_pipeline(report):
     return counts
 
 
+# ------------------------------------------------------------- phase 5 ---
+
+def build_trainer(dtype, batch_size):
+    """(trainer, state, batch, mask): the full-width training set-up on the
+    card.
+    Seeded random weights with every parameter randomised, so that every
+    sub-layer carries gradient; the trainable mask is the reference's
+    (_temp / _audio); frozen parameters are stored in the compute dtype."""
+    import torch
+    from asva_tpu_torch.models.unet3d import UNet3DConfig
+    from asva_tpu_torch.runtime import (build_audio_encoder, build_unet,
+                                        build_vae)
+    from asva_tpu_torch.training import (AnimationTrainConfig,
+                                         AnimationTrainer, TrainState,
+                                         build_optimizer, trainable_mask)
+    from asva_tpu_torch.training.optim import apply_trainable_mask
+    # remat as configs/audio-cond_animation/avsync15_audio-cond_cfg.yaml has
+    # it: enable_gradient_checkpoint with the default "highres" policy
+    cfg = UNet3DConfig(remat=True, remat_policy="highres")
+    unet = build_unet(cfg, dtype=dtype, seed=0, randomize_all=True,
+                      train=True)
+    mask = trainable_mask(unet)
+    apply_trainable_mask(unet, mask, frozen_dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(100)
+    trainer = AnimationTrainer(
+        unet=unet,
+        vae=build_vae(dtype=dtype, seed=1, randomize_all=True),
+        audio_encoder=build_audio_encoder(F, dtype=dtype, seed=2,
+                                          randomize_all=True),
+        # no CLIP weights: a seeded stand-in for the empty-string encoding
+        null_text_encoding=torch.randn((1, TEXT_TOKENS, 768), device="cuda",
+                                       generator=gen),
+        config=AnimationTrainConfig(audio_cond_drop_prob=0.2))
+    state = TrainState(0, unet, build_optimizer(
+        unet, 1e-4, mask=mask, weight_decay=1e-2, max_grad_norm=1.0))
+    batch = {
+        "videos": torch.rand((batch_size, F, 256, 256, 3), generator=gen,
+                             device="cuda"),
+        "waveforms": torch.randn((batch_size, 1, 32000), generator=gen,
+                                 device="cuda") * 0.1,
+        "text_encodings": torch.randn((batch_size, TEXT_TOKENS, 768),
+                                      generator=gen, device="cuda")}
+    return trainer, state, batch, mask
+
+
+def _gen(seed):
+    import torch
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+def train_steps(trainer, state, batch, n_steps, first_seed):
+    """n_steps train steps, each with the counters zeroed just before and
+    read just after; the first one's gradients are checked."""
+    import torch
+    losses, seconds, counts, grad_check = [], [], [], None
+    for i in range(n_steps):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i == 0:
+            loss, grads = trainer.grad_step(state, batch, _gen(first_seed))
+            finite = all(bool(torch.isfinite(g).all()) for g in grads)
+            zero = [n for n, g in zip(state.optimizer.names, grads)
+                    if not bool(g.any())]
+            grad_check = dict(n_trainable=len(grads), all_finite=finite,
+                              all_zero=zero[:8])
+            trainer.apply_step(state, grads)
+            del grads
+        else:
+            loss = trainer.train_step(state, batch, _gen(first_seed + i))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        counts.append(read_counts())
+    return losses, seconds, counts, grad_check
+
+
+def phase_train(report):
+    import torch
+    from asva_tpu_torch.training.checkpoint import CheckpointManager
+    out = {"remat_policy": "highres"}
+    n_steps = 4
+    for batch_size in (TRAIN_B, 2, 1):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            trainer, state, batch, mask = build_trainer(torch.bfloat16,
+                                                        batch_size)
+            # host copies: clones on the card would count in the peak
+            frozen = {n: p.detach().cpu()
+                      for n, p in state.unet.named_parameters()
+                      if not mask[n]}
+            losses, seconds, counts, grad_check = train_steps(
+                trainer, state, batch, n_steps, 200)
+            break
+        except torch.cuda.OutOfMemoryError:
+            log(f"  train: batch {batch_size} does not fit in device memory")
+            trainer = state = batch = frozen = None
+    else:
+        fail("train: not even batch 1 fits in device memory")
+    peak = torch.cuda.max_memory_allocated()
+    params = list(state.unet.named_parameters())
+    param_bytes = sum(p.numel() * p.element_size() for _, p in params)
+    n_frozen = sum(p.numel() for n, p in params if not mask[n])
+    n_train = sum(p.numel() for n, p in params if mask[n])
+    frozen_same = all(torch.equal(p.cpu(), frozen[n]) and not p.requires_grad
+                      and p.grad is None for n, p in params if not mask[n])
+    del frozen
+    out.update(batch_size=batch_size, losses=losses, seconds_per_step=seconds,
+               launches_per_step=counts, max_memory_allocated=peak,
+               grad_check=grad_check, frozen_unchanged=frozen_same,
+               n_trainable_params=n_train, n_frozen_params=n_frozen,
+               unet_param_bytes=param_bytes)
+    log(f"  train: remat policy highres; batch {batch_size}; seconds per "
+        f"step {[round(x, 3) for x in seconds]}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; UNet parameters {n_train / 1e6:.1f} M "
+        f"trainable fp32 + {n_frozen / 1e6:.1f} M frozen bf16 = "
+        f"{param_bytes / 2**30:.2f} GiB (all fp32 would be "
+        f"{(n_train + n_frozen) * 4 / 2**30:.2f} GiB)")
+    log(f"  train: losses {losses}; launches per step {counts}; gradients "
+        f"{grad_check}; frozen unchanged {frozen_same}")
+    ok = (all(math.isfinite(x) for x in losses) and frozen_same
+          and grad_check["all_finite"] and not grad_check["all_zero"]
+          and grad_check["n_trainable"] == len(state.optimizer.names)
+          and state.step == n_steps)
+    # 16 transformer blocks x 3 attention sub-layers, before any recompute
+    counts_ok = all(c["B1"] >= 48 and c["B4"] >= 48 and c["B5"] >= 48
+                    and c["B2"] == 0 and c["B3"] >= 16 for c in counts)
+    if not (ok and counts_ok):
+        fail(f"train checks: {out}")
+
+    # one save and restore_latest of the trainer state
+    def checksum(unet):
+        return sum(p.detach().double().sum().item()
+                   for p in unet.parameters())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mgr = CheckpointManager(tmp, checkpointing_steps=n_steps)
+        saved = mgr.save(state.step, state.state_dict(), extra={"seed": 200})
+        want = (state.step, checksum(state.unet), state.optimizer.count)
+        with torch.no_grad():
+            for p in state.optimizer.params:
+                p.zero_()
+        state.step, state.optimizer.count = 0, 0
+        step, restored = CheckpointManager(tmp).restore_latest("cuda")
+        state.load_state_dict(restored)
+        del restored
+        got = (state.step, checksum(state.unet), state.optimizer.count)
+        out["checkpoint"] = dict(saved=saved, step=step, want=want, got=got,
+                                 seconds=time.perf_counter() - t0)
+    log(f"  train: checkpoint {out['checkpoint']}")
+    if not (saved and step == n_steps and got == want):
+        fail(f"checkpoint round trip: {out['checkpoint']}")
+    launches = {k: sum(c[k] for c in counts) for k in counts[0]}
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+
+    # Batch 1 in fp32 at full width: kernels vs the plain sub-layers on the
+    # same draws.  fp32 products throughout; the kernels differ from
+    # torch's in summation order and in the online softmax, through some 100
+    # layers forward and back: loss within 1e-4 relative, each trainable
+    # gradient within 2e-3 of its largest entry.
+    trainer, state, batch, _ = build_trainer(torch.float32, 1)
+    draws = trainer.draw(batch, _gen(300))
+    reset_counts()
+    loss_k, grads_k = trainer.grad_step(state, batch, draws=draws)
+    counts32 = read_counts()
+    with plain_sublayers():
+        loss_p, grads_p = trainer.grad_step(state, batch, draws=draws)
+    worst = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
+                for a, b in zip(grads_k, grads_p))
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    out["fp32_batch1"] = dict(loss_kernels=loss_k.item(),
+                              loss_plain=loss_p.item(), loss_rel=loss_rel,
+                              worst_grad_rel_to_max=worst, launches=counts32)
+    log(f"  train: fp32 batch 1 kernels vs plain {out['fp32_batch1']}")
+    report["train"] = out
+    if not (loss_rel <= 1e-4 and worst <= 2e-3 and counts32["B5"] >= 48):
+        fail(f"fp32 batch-1 train comparison: {out['fp32_batch1']}")
+    del trainer, state, batch, grads_k, grads_p
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _kernel_kind(name: str) -> str:
+    """Coarse family of a device kernel, from its name."""
+    if "(anonymous namespace)::gemm_" in name:
+        return "port K-gemm"
+    if "(anonymous namespace)::attn_" in name:
+        return "port B4 (K-attn)"
+    if "(anonymous namespace)::bwd_" in name:
+        return "port B5"
+    if any(s in name for s in ("fprop", "dgrad", "wgrad", "cudnn")):
+        return "cuDNN convolution"
+    if any(s in name for s in ("xmma_gemm_f32f32", "sgemm", "gemmSN",
+                               "gemv")):
+        return "cuBLAS fp32 product"
+    if any(s in name for s in ("nvjet", "xmma_gemm", "cutlass")):
+        return "cuBLAS bf16 product"
+    if "at::native" in name:
+        return "torch elementwise / reduce / copy"
+    return "other"
+
+
+def _profile(label, fn, plain_s, report):
+    """fn() once under torch.profiler: device time by kernel name and kind,
+    device busy time, and the idle share against `plain_s`, the host-clock
+    seconds of the same call unprofiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        dev = getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0))
+        if dev > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            rows.append(dict(name=e.key[:120], count=e.count,
+                             device_ms=dev / 1e3))
+    if not rows:
+        fail(f"profile {label}: the profiler saw no device time")
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows)
+    kinds = {}
+    for r in rows:
+        k = kinds.setdefault(_kernel_kind(r["name"]),
+                             dict(device_ms=0.0, launches=0))
+        k["device_ms"] += r["device_ms"]
+        k["launches"] += r["count"]
+    out = report[f"profile_{label}"] = dict(
+        seconds_unprofiled=plain_s, seconds_profiled=prof_s,
+        device_busy_ms=busy, n_kernel_launches=sum(r["count"] for r in rows),
+        idle_share_vs_unprofiled=1.0 - busy / 1e3 / plain_s,
+        by_kind=kinds, top=rows[:60])
+    log(f"  profile {label}: {plain_s:.3f} s unprofiled, {prof_s:.3f} s "
+        f"profiled; device busy {busy:.1f} ms in {out['n_kernel_launches']} "
+        f"launches; idle {out['idle_share_vs_unprofiled']:.1%} of the "
+        f"unprofiled time")
+    for kind, k in sorted(kinds.items(), key=lambda kv: -kv[1]["device_ms"]):
+        log(f"    {k['device_ms']:9.2f} ms  x{k['launches']:<6d} {kind}")
+    for r in rows[:25]:
+        log(f"    {r['device_ms']:9.2f} ms  x{r['count']:<6d} {r['name']}")
+
+
+def profile_train(report):
+    """One steady training step (batch 4, bf16) under torch.profiler."""
+    import torch
+    trainer, state, batch, _ = build_trainer(torch.bfloat16, TRAIN_B)
+    for i in range(2):
+        trainer.train_step(state, batch, _gen(400 + i))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.train_step(state, batch, _gen(402))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    _profile("train", lambda: trainer.train_step(state, batch, _gen(403)),
+             plain_s, report)
+
+
+def profile_request(report):
+    """One warm generation request (as phase 4's) under torch.profiler."""
+    import torch
+    null_text = torch.randn((1, TEXT_TOKENS, 768), device="cuda",
+                            generator=_gen(100))
+    from asva_tpu_torch.runtime import load_animation_pipeline
+    pipe = load_animation_pipeline(dtype=torch.bfloat16, seed=0,
+                                   randomize_all=True,
+                                   null_text_encoding=null_text)
+    g = _gen(101)
+    image = torch.rand((1, 256, 256, 3), generator=g, device="cuda")
+    wave = torch.randn((1, 32000), generator=g, device="cuda") * 0.1
+    text = torch.randn((1, TEXT_TOKENS, 768), generator=g, device="cuda")
+
+    def request(seed):
+        mels = pipe.encode_audio_waveform([wave])
+        return pipe(image, mels, text, generator=_gen(seed), video_length=F,
+                    num_inference_steps=5, sampler="ddim",
+                    audio_guidance_scale=4.0, text_guidance_scale=1.0)
+
+    seconds = []
+    for seed in range(500, 505):      # the first two warm up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        request(seed)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    plain_s = sorted(seconds[2:])[1]
+    _profile("request", lambda: request(505), plain_s, report)
+    report["profile_request"]["seconds_all"] = seconds
+
+
 # ---------------------------------------------------------------- main ---
 
 def main() -> int:
@@ -415,13 +879,6 @@ def main() -> int:
             f"{len(usage)} ptxas usage lines")
     log(f"  build {report['build_seconds']:.1f} s")
 
-    log("phase 2: kernels vs plain")
-    rows = phase_kernels(report)
-    log("phase 3: unet")
-    b1_counts = phase_unet(report)
-    log("phase 4: pipeline")
-    pipe_counts = phase_pipeline(report)
-
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -429,26 +886,61 @@ def main() -> int:
     card = smi[0] if smi else "nvidia-smi gave no output"
     report["card"] = card
 
-    launches = {"B1": b1_counts["B1"], "B2": pipe_counts["B2"],
-                "B3": pipe_counts["B3"]}
-    paths = {"B1": "unet fuse_blocks=False", "B2": "pipeline",
-             "B3": "pipeline"}
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    if "--profile" in sys.argv[1:]:
+        log(f"profile: one generation request, one training step on {card}")
+        profile_request(report)
+        torch.cuda.empty_cache()
+        profile_train(report)
+        with open(os.path.join(out_dir, "profile.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        return 0
+
+    log("phase 2: kernels vs plain")
+    rows = phase_kernels(report)
+    log("phase 3: unet")
+    b1_counts = phase_unet(report)
+    log("phase 4: pipeline")
+    pipe_counts = phase_pipeline(report)
+    log("phase 5: train")
+    train_counts = phase_train(report)
+
+    # launches on each driven path: B1 and B3 run in generation and training
+    by_path = {
+        "B1": {"unet fuse_blocks=False": b1_counts["B1"],
+               "train, 4 steps": train_counts["B1"]},
+        "B2": {"pipeline, 3 requests": pipe_counts["B2"]},
+        "B3": {"pipeline, 3 requests": pipe_counts["B3"],
+               "train, 4 steps": train_counts["B3"]},
+        "B4": {"train, 4 steps": train_counts["B4"]},
+        "B5": {"train, 4 steps": train_counts["B5"]}}
     kernels = []
     for name, (replaces, tpu, sources) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
-        main = next(r for r in mine if r["dtype"] == "bfloat16")
-        err = max(r["max_abs_err"] for r in mine)
-        kernels.append(dict(
-            name=name, route="cuda", source=sources[0], sources=sources,
-            replaces=replaces, tpu=tpu, launches=launches[name],
-            path=paths[name], max_abs_err=err, max_abs_diff=err,
-            ms=main["ms"], plain_ms=main["plain_ms"],
-            timed_case=f"{main['case']} bf16"))
-    if any(k["launches"] <= 0 for k in kernels):
-        fail(f"a kernel was not launched on its path: {launches}")
 
-    out_dir = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
+        def timed(prefix):
+            return next(r for r in mine if r["dtype"] == "bfloat16"
+                        and r["case"].startswith(prefix))
+        main = timed(TIMED_CASE[name])
+        err = max(r["max_abs_err"] for r in mine)
+        entry = dict(
+            name=name, route="cuda", source=sources[0], sources=sources,
+            replaces=replaces, tpu=tpu, launches=sum(by_path[name].values()),
+            launches_by_path=by_path[name], max_abs_err=err, ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=main["library_ms"],
+            timed_case=f"{main['case']} bf16")
+        if name in TRAIN_TIMED_CASE:
+            train = timed(TRAIN_TIMED_CASE[name])
+            entry["train_shape"] = dict(
+                timed_case=f"{train['case']} bf16", ms=train["ms"],
+                plain_ms=train["plain_ms"], bound_ms=train["bound_ms"],
+                bound_by=train["bound_by"])
+        kernels.append(entry)
+    if any(n <= 0 for paths in by_path.values() for n in paths.values()):
+        fail(f"a kernel was not launched on one of its paths: {by_path}")
+
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (B1-B3) against their plain versions, on a card.
+"""The port's CUDA kernels (B1-B5) against their plain versions, on a card.
 
 Marked `cuda`: each test skips without a CUDA device.  This file imports no
 JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
@@ -8,12 +8,17 @@ JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
 (`--noconftest`: tests/conftest.py configures JAX.)  chip_smoke.py holds
 the kernels against their plain versions at every SD1.5 level; this file
 covers what that run does not reach: kv_len < Sk masking, ragged token
-counts that are not tile multiples, and head dims 40/80/160.
+counts that are not tile multiples, head dims 40/80/160, and the rule that a
+wrapper given an input that requires grad returns a tensor with a grad_fn.
 
 Tolerances: fp32 1e-4 times max(1, max|plain|) (fp32 products; summation
 order and the online softmax differ); bf16 2**-6 times max|plain| (two bf16
 ulps at the output's largest magnitude: q, P and h round at different
-points)."""
+points; the backward rounds dS and P where the Pallas body does).  Gradients
+through a whole wrapper in bf16: 2**-5 times max|plain gradient| (the
+forward's and the backward's roundings stack)."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -112,3 +117,163 @@ def test_wrapper_rejects_bad_input(dev):
         fused.fused_ln_attn(x, *sub, kv.cpu(), kv, 1e-5, 8)
     assert np.isfinite(fused.fused_ln_attn(x, *sub, kv, kv, 1e-5, 8)
                        .cpu().numpy()).all()
+
+
+# ------------------------------------------------------------ B4 and B5 ---
+
+ATTN_SHAPES = [
+    # g, m, sk, heads, d, kv_len
+    (3, 130, 128, 8, 40, 77),    # d = 40, masked past kv_len, ragged M
+    (2, 100, 25, 8, 80, None),   # d = 80, fewer K/V rows than one tile
+    (2, 70, 200, 8, 160, 150),   # d = 160 (split dK/dV head tile), masked
+    (1, 64, 64, 2, 96, None),    # exact tiles, widest unsplit head tile
+]
+
+
+def _qkv(gen, g, m, sk, c, dtype):
+    return (_r(gen, (g, m, c), dtype), _r(gen, (g, sk, c), dtype),
+            _r(gen, (g, sk, c), dtype))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g,m,sk,heads,d,kv_len", ATTN_SHAPES)
+def test_b4_on_card(dev, dtype, g, m, sk, heads, d, kv_len):
+    """o and lse against mha_fwd_plain; lse is fp32 in both dtypes and is
+    held to 1e-4 (fp32) / 2e-2 (bf16 inputs: logits of rounded products)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v = _qkv(gen, g, m, sk, heads * d, dtype)
+    before = fused.LAUNCHES["B4"]
+    o, lse = fused.mha_fwd(q, k, v, heads, kv_len, 1 / math.sqrt(d))
+    assert fused.LAUNCHES["B4"] == before + 1
+    o_ref, lse_ref = fused.mha_fwd_plain(q, k, v, heads, kv_len,
+                                         1 / math.sqrt(d))
+    _check(o, o_ref, dtype)
+    assert lse.dtype == torch.float32 and lse.shape == (g, m, heads)
+    lse_tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (lse - lse_ref).abs().max().item() <= lse_tol
+
+
+@pytest.mark.parametrize("need_dkv", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g,m,sk,heads,d,kv_len", ATTN_SHAPES)
+def test_b5_on_card(dev, dtype, g, m, sk, heads, d, kv_len, need_dkv):
+    """dq, dk, dv against mha_bwd_plain on the same (lse, dd); rows of dk/dv
+    past kv_len are exactly zero; need_dkv=False computes dq alone."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v = _qkv(gen, g, m, sk, heads * d, dtype)
+    do = _r(gen, q.shape, dtype)
+    scale = 1 / math.sqrt(d)
+    o, lse = fused.mha_fwd_plain(q, k, v, heads, kv_len, scale)
+    dd = fused._head_rowsum(do, o, heads)
+    before = fused.LAUNCHES["B5"]
+    got = fused.mha_bwd(q, k, v, do, lse, dd, heads, kv_len, scale, need_dkv)
+    assert fused.LAUNCHES["B5"] == before + 1
+    want = fused.mha_bwd_plain(q, k, v, do, lse, dd, heads, kv_len, scale)
+    _check(got[0], want[0], dtype)
+    if not need_dkv:
+        assert got[1] is None and got[2] is None
+        return
+    _check(got[1], want[1], dtype)
+    _check(got[2], want[2], dtype)
+    if kv_len is not None:
+        assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+# ------------------------------------------------- gradients of wrappers ---
+
+def _grad_check(out, ref, inputs, dtype):
+    """Same cotangent through the wrapper and through the plain version."""
+    assert out.grad_fn is not None
+    w = torch.randn(out.shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(9)
+                    ).to(out.dtype)
+    got = torch.autograd.grad((out.float() * w.float()).sum(), inputs)
+    want = torch.autograd.grad((ref.float() * w.float()).sum(), inputs)
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        scale = b.abs().max().item()
+        tol = (1e-4 * max(1.0, scale) if dtype == torch.float32
+               else 2.0 ** -5 * scale)
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= tol
+
+
+def _leaves(tensors):
+    return [t.detach().requires_grad_(True) for t in tensors]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,heads,m,sk,kv_len", [
+    (320, 8, 130, 128, 77), (640, 8, 100, 25, None), (1280, 8, 70, 200, 150)])
+def test_fused_ln_attn_gradients_on_card(dev, dtype, c, heads, m, sk, kv_len):
+    """The manual backward around B5 against autograd of ln_attn_plain, for
+    x, every parameter, k and v."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    args = _leaves([_r(gen, (3, m, c), dtype)] + _sub(gen, c, dtype)
+                   + [_r(gen, (3, sk, c), dtype), _r(gen, (3, sk, c), dtype)])
+    before = dict(fused.LAUNCHES)
+    out = fused.fused_ln_attn(*args, 1e-5, heads, kv_len)
+    ref = fused.ln_attn_plain(*args, 1e-5, heads, kv_len)
+    _check(out, ref, dtype)
+    _grad_check(out, ref, args, dtype)
+    assert fused.LAUNCHES["B4"] == before["B4"] + 1
+    assert fused.LAUNCHES["B5"] == before["B5"] + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_ln_geglu_gradients_on_card(dev, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    m, c = 200, 320
+    args = _leaves([_r(gen, (m, c), dtype), _r(gen, (c,), dtype, 0.1, 1.0),
+                    _r(gen, (c,), dtype, 0.1),
+                    _r(gen, (8 * c, c), dtype, c ** -0.5),
+                    _r(gen, (8 * c,), dtype, 0.1),
+                    _r(gen, (c, 4 * c), dtype, (4 * c) ** -0.5),
+                    _r(gen, (c,), dtype, 0.1)])
+    _grad_check(fused.fused_ln_geglu(*args, 1e-5),
+                fused.ln_geglu_plain(*args, 1e-5), args, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_ln_attn3_gradients_on_card(dev, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    b, f, n, c = 2, 3, 40, 320
+    args = [_r(gen, (b, f, n, c), dtype)]
+    for shape in ((b, n, c), (b, f, 25, c), (b, 77, c)):
+        args += _sub(gen, c, dtype) + [_r(gen, shape, dtype),
+                                       _r(gen, shape, dtype)]
+    args = _leaves(args)
+    _grad_check(fused.fused_ln_attn3(*args, (1e-5,) * 3, 8),
+                fused.ln_attn3_plain(*args, (1e-5,) * 3, 8), args, dtype)
+
+
+def test_wrappers_keep_the_autograd_graph(dev):
+    """A CUDA input that requires grad must come back with a grad_fn: the
+    kernels write into fresh buffers, so without an autograd rule the graph
+    would be cut silently.  fp32 parameters with bf16 activations (the
+    training layout) are cast at use and receive fp32 gradients."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    c = 320
+    x = _r(gen, (2, 64, c), torch.bfloat16).requires_grad_(True)
+    sub = _leaves(_sub(gen, c, torch.float32))
+    kv = _r(gen, (2, 25, c), torch.bfloat16)
+    out = fused.fused_ln_attn(x, *sub, kv, kv, 1e-5, 8)
+    assert out.grad_fn is not None and out.dtype == torch.bfloat16
+    out.float().sum().backward()
+    assert x.grad is not None and x.grad.abs().max() > 0
+    for p in sub:
+        assert p.grad is not None and p.grad.dtype == torch.float32
+        assert torch.isfinite(p.grad).all() and p.grad.abs().max() > 0
+    ff = _leaves([_r(gen, (c,), torch.float32, 0.1, 1.0),
+                  _r(gen, (c,), torch.float32, 0.1),
+                  _r(gen, (8 * c, c), torch.float32, c ** -0.5),
+                  _r(gen, (8 * c,), torch.float32, 0.1),
+                  _r(gen, (c, 4 * c), torch.float32, (4 * c) ** -0.5),
+                  _r(gen, (c,), torch.float32, 0.1)])
+    y = fused.fused_ln_geglu(x.detach().reshape(-1, c).requires_grad_(True),
+                             *ff, 1e-5)
+    assert y.grad_fn is not None
+    q = _r(gen, (2, 64, c), torch.bfloat16).requires_grad_(True)
+    assert fused.mha_kvshared(q, kv, kv, 8, None, 0.2).grad_fn is not None
+    with torch.no_grad():
+        assert fused.fused_ln_attn(x, *sub, kv, kv, 1e-5, 8).grad_fn is None

@@ -54,18 +54,23 @@ def close(got, want, tol):
 # ---------------------------------------------------------------- rules ---
 
 def test_port_imports_no_jax():
-    """asva_tpu_torch never imports jax, flax or asva_tpu."""
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|asva_tpu)(\.|\s|$)",
-                     re.M)
-    offenders = []
+    """asva_tpu_torch — every sub-package, training/ included — never
+    imports jax, flax, optax, orbax or asva_tpu."""
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|asva_tpu)(\.|\s|$)", re.M)
+    offenders, seen = [], set()
     for root, _, files in os.walk(PKG):
         for name in files:
             if name.endswith(".py"):
                 path = os.path.join(root, name)
+                seen.add(os.path.relpath(path, PKG))
                 with open(path) as f:
                     if pat.search(f.read()):
                         offenders.append(path)
     assert offenders == []
+    assert {os.path.join("training", n) for n in
+            ("__init__.py", "optim.py", "animation_trainer.py",
+             "checkpoint.py")} <= seen
 
 
 # ---------------------------------------------------------------- norms ---

@@ -129,7 +129,7 @@ def test_runtime_builders_and_modules_config(tmp_path):
                              "num_blocks": 2, "num_heads": 2}}
     (tmp_path / "checkpoint-1" / "modules_config.json").write_text(
         json.dumps(cfg))
-    kw = dict(checkpoint_modules_dir=str(mods), n_segment=F,
+    kw = dict(checkpoint_modules_dir=str(mods), n_segment=F, device="cpu",
               dtype=torch.float32, vae_config=TVC.tiny(), seed=4,
               null_text_encoding=torch.zeros(1, 7, 768))
     pipe = runtime.load_animation_pipeline(**kw)
