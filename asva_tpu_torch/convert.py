@@ -11,6 +11,14 @@ convolutions that asva_tpu holds as Dense (the VAE's quant_conv /
 post_quant_conv) come out as (o, i) and are held here, as in the
 reference checkpoints, as (o, i, 1, 1).
 
+The networks with BatchNorm (AVSync classifier, I3D, InceptionV3) keep
+their running statistics in flax's `batch_stats` collection, outside
+`params`; the key maps drop both prefixes and name the leaves
+`running_mean` / `running_var`, so exporting the whole variables dict
+({"params": ..., "batch_stats": ...}) yields every real key.  torch's
+`num_batches_tracked` counters have no JAX source: `load_exported` keeps the
+module's own value for exactly those keys and stays strict for all others.
+
 An optax AdamW state exported the same way loads into the port's optimizer
 (`load_exported_adam_state`), so a run can move between the two packages.
 """
@@ -39,6 +47,9 @@ def load_exported(module: nn.Module, state: Dict[str, np.ndarray],
         if target is not None:
             t = t.to(dtype=target.dtype, device=target.device)
         tensors[key] = t
+    for key, value in own.items():
+        if key.endswith(".num_batches_tracked") and key not in tensors:
+            tensors[key] = value
     module.load_state_dict(tensors, strict=strict)
     return module
 

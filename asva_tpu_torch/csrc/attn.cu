@@ -30,6 +30,17 @@
 // in bf16, P is rounded before normalisation, so results differ at the bf16
 // rounding level (tolerance stated in chip_smoke.py).
 //
+// The same kernels are also B6, the flat one-head-per-program attention of
+// asva_tpu/ops/pallas_attn.py (_attn_kernel :25, called by _attention_flat
+// :45; public vmem_attention / vmem_cross_attention): q (BH, Sq, D) against
+// k/v (BH, Sk, D) is this layout with G = BH groups of H = 1 head, so
+// `asva_flat_attn` launches the tile code above with those strides and no
+// lse.  The Pallas body keeps the whole K/V of one head on chip; here Sk is
+// streamed in 64-row tiles (K/V at Sk = 1024 x D = 160 beside a logits tile
+// does not fit the 228 KB of an SM), so the order is again "round P, then
+// normalise" where the Pallas body normalises first (pallas_attn.py:38).
+// K/V are never padded: rows >= kv_len are neither read nor needed.
+//
 // bf16: mma.sync m16n8k16, 4 warps x 16 query rows; P goes from the QK^T
 // accumulator registers straight into the A fragments of the PV product.
 // fp32: a plain FMA path, 32 query rows x 4 threads each.
@@ -385,4 +396,14 @@ extern "C" int asva_mha_fwd(int dtype, int G, int M, int Sk, int kv_len,
                                           (const float*)v, (float*)o, l, M,
                                           Sk, kv_len, H, D, scale);
   return (int)cudaGetLastError();
+}
+
+// B6: q, o (BH, Sq, D); k, v (BH, Sk, D): one head per group.  Same argument
+// rules as asva_mha_fwd.
+extern "C" int asva_flat_attn(int dtype, int BH, int Sq, int Sk, int kv_len,
+                              int D, float scale, const void* q,
+                              const void* k, const void* v, void* o,
+                              void* stream) {
+  return asva_mha_fwd(dtype, BH, Sq, Sk, kv_len, 1, D, scale, q, k, v, o,
+                      nullptr, stream);
 }

@@ -125,7 +125,8 @@ class _MultiheadAttention(nn.Module):
         else:
             self.bias_k = self.bias_v = None
 
-    def forward(self, y: torch.Tensor) -> torch.Tensor:
+    def forward(self, y: torch.Tensor, mask=None) -> torch.Tensor:
+        """mask: boolean, broadcastable to (b, H, n, n_kv), True = attend."""
         b, n, e = y.shape
         q, k, v = F.linear(y, self.in_proj_weight, self.in_proj_bias).chunk(
             3, dim=-1)
@@ -135,7 +136,7 @@ class _MultiheadAttention(nn.Module):
         h = self.num_heads
         attn = dot_product_attention(q.reshape(b, n, h, e // h),
                                      k.reshape(b, -1, h, e // h),
-                                     v.reshape(b, -1, h, e // h))
+                                     v.reshape(b, -1, h, e // h), mask=mask)
         return self.out_proj(attn.reshape(b, n, e))
 
 
@@ -147,9 +148,11 @@ class _Mlp(nn.Module):
 
 
 class TrunkBlock(nn.Module):
-    """Pre-norm ViT block (LayerNorm eps 1e-6, exact-erf GELU MLP)."""
+    """Pre-norm ViT block (LayerNorm eps 1e-6, exact-erf GELU MLP), shared
+    by the audio, vision and text trunks; `cfg` gives embed_dim, num_heads,
+    mlp_ratio and add_bias_kv.  The text trunk passes its causal mask."""
 
-    def __init__(self, cfg: ImageBindAudioConfig):
+    def __init__(self, cfg):
         super().__init__()
         e = cfg.embed_dim
         self.norm_1 = AdaptiveOrLayerNorm(e, 1e-6)
@@ -157,8 +160,8 @@ class TrunkBlock(nn.Module):
         self.norm_2 = AdaptiveOrLayerNorm(e, 1e-6)
         self.mlp = _Mlp(e, int(e * cfg.mlp_ratio))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm_1(x))
+    def forward(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+        x = x + self.attn(self.norm_1(x), mask)
         y = self.mlp.fc2(F.gelu(self.mlp.fc1(self.norm_2(x))))
         return x + y
 

@@ -6,10 +6,15 @@ package's (b, f, h, w, c); convolutions run on a channels_last view of it
 upsample fold (here nearest-up then conv), the temporal pair loop and the
 VMEM gates.
 
-The attention sub-layers (attn1, audio-x, text-x) always run as fused
-residual sub-layers through ops/fused.py: K/V projections, the frame-0
-slice and the audio token gather stay plain torch outside the kernels, as
-the JAX `prepare=True` bundles do (primitives.py:308-323, :393-417).
+The attention sub-layers (attn1, audio-x, text-x) called with their
+LayerNorm `ln` run as fused residual sub-layers through ops/fused.py: K/V
+projections, the frame-0 slice and the audio token gather stay plain torch
+outside the kernels, as the JAX `prepare=True` bundles do
+(primitives.py:308-323, :393-417).  Called with `ln=None` they return the
+bare attention `_attend(x)` (no LayerNorm, no residual), which dispatches by
+function as the JAX modules do (:347-365, :468-504): shared frame-0 K/V and
+an unmasked 3-D context go to ops/flat_attention.py (kernel B6), a gathered,
+masked or per-frame context to ops/attention.dot_product_attention.
 """
 from __future__ import annotations
 
@@ -21,7 +26,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ...ops import fused
+from ...ops import flat_attention, fused
+from ...ops.attention import dot_product_attention
 from ...ops.linear import Linear
 
 
@@ -141,21 +147,55 @@ class MultiHeadProjections(nn.Module):
         return (ln.weight, ln.bias, self.to_q.weight, out.weight, out.bias,
                 k, v)
 
+    def split(self, t: torch.Tensor) -> torch.Tensor:
+        """(..., H*D) -> (..., H, D)."""
+        return t.reshape(t.shape[:-1] + (self.num_heads, self.head_dim))
+
+    def _flat_heads(self, t: torch.Tensor) -> torch.Tensor:
+        """(b, s, H*D) -> (b*H, s, D), the layout of ops/flat_attention."""
+        b, s, _ = t.shape
+        return self.split(t).transpose(1, 2).reshape(
+            b * self.num_heads, s, self.head_dim)
+
+    def _attend_flat(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len: Optional[int]) -> torch.Tensor:
+        """q (b, f, n, H*D) over k/v (b, m, H*D) shared by every frame, as
+        (b*H, f*n, D) against (b*H, m, D) -> (b, f, n, H*D)."""
+        b, f, n, c = q.shape
+        qf = self._flat_heads(q.reshape(b, f * n, c))
+        kf, vf = self._flat_heads(k), self._flat_heads(v)
+        if kv_len is None:
+            of = flat_attention.vmem_attention(qf, kf, vf)
+        else:
+            of = flat_attention.vmem_cross_attention(qf, kf, vf, kv_len)
+        return of.reshape(b, self.num_heads, f * n, self.head_dim).transpose(
+            1, 2).reshape(b, f, n, c)
+
 
 class FFSpatialAttention(MultiHeadProjections):
-    """Residual sub-layer x + Attn(LN(x)) on (b, f, n, c) tokens, where
-    every frame's queries attend K/V projected from the normed frame 0."""
+    """Spatial self-attention on (b, f, n, c) tokens with K/V from frame 0
+    only, shared by every frame's queries.  With `ln` it is the residual
+    sub-layer x + Attn(LN(x)) with K/V projected from the normed frame 0;
+    with ln=None it returns the bare attention of x."""
 
     def prepare(self, x: torch.Tensor, ln) -> tuple:
         h0 = ln(x[:, 0])                                 # (b, n, c)
         return self._bundle(ln, self.to_k(h0), self.to_v(h0))
 
-    def forward(self, x: torch.Tensor, ln) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ln=None) -> torch.Tensor:
+        if ln is None:
+            return self._attend(x)
         b, f, n, c = x.shape
         out = fused.fused_ln_attn(x.reshape(b, f * n, c),
                                   *self.prepare(x, ln), ln.eps,
                                   self.num_heads)
         return out.reshape(b, f, n, c)
+
+    def _attend(self, x: torch.Tensor) -> torch.Tensor:
+        first = x[:, 0]                                  # (b, n, c)
+        out = self._attend_flat(self.to_q(x), self.to_k(first),
+                                self.to_v(first), None)
+        return self.to_out[0](out)
 
 
 def mask_to_token_indices(mask) -> np.ndarray:
@@ -175,11 +215,17 @@ def mask_to_token_indices(mask) -> np.ndarray:
 
 
 class CrossAttention(MultiHeadProjections):
-    """Residual sub-layer x + CrossAttn(LN(x), context) for (b, f, n, c)
-    tokens and a (b, m, d) context.  With `context_indices` (f, m_tok), K/V
-    are projected once over all tokens and gathered per frame: frame i
-    attends exactly context tokens context_indices[i] — equal to the
-    boolean segment-mask attention of the reference."""
+    """Cross attention of (b, f, n, c) tokens over a context that is shared
+    by the frames, (b, m, d), or per frame, (b, f, m, d).  With
+    `context_indices` (f, m_tok), K/V of a shared context are projected once
+    over all tokens and gathered per frame: frame i attends exactly context
+    tokens context_indices[i] — equal to the boolean segment-mask attention
+    of the reference.  `mask` (b, f, m), True = attend, masks context tokens
+    per frame.
+
+    With `ln` it is the fused residual sub-layer x + CrossAttn(LN(x),
+    context), for a shared context that is unmasked or gathered; with
+    ln=None it returns the bare attention of x, in every form."""
 
     def prepare(self, context: torch.Tensor, ln,
                 context_indices=None) -> tuple:
@@ -190,11 +236,18 @@ class CrossAttention(MultiHeadProjections):
             k, v = k[:, idx], v[:, idx]                  # (b, f, m_tok, c)
         return self._bundle(ln, k, v)
 
-    def forward(self, x: torch.Tensor, context: torch.Tensor, ln,
+    def forward(self, x: torch.Tensor, context: torch.Tensor, ln=None,
+                mask: Optional[torch.Tensor] = None,
                 context_indices=None) -> torch.Tensor:
+        if ln is None:
+            return self._attend(x, context, mask, context_indices)
         b, f, n, c = x.shape
-        if context.dim() != 3:
-            raise ValueError("context must be (b, m, d)")
+        if context.dim() != 3 or (mask is not None
+                                  and context_indices is None):
+            raise ValueError(
+                "the fused residual form takes a (b, m, d) context that is "
+                "unmasked or gathered by context_indices; call with ln=None "
+                "for a masked or per-frame context")
         ls, lb, wq, wo, bo, k, v = self.prepare(context, ln, context_indices)
         if context_indices is not None:
             out = fused.fused_ln_attn(
@@ -205,6 +258,28 @@ class CrossAttention(MultiHeadProjections):
             out = fused.fused_ln_attn(x.reshape(b, f * n, c), ls, lb, wq, wo,
                                       bo, k, v, ln.eps, self.num_heads)
         return out.reshape(b, f, n, c)
+
+    def _attend(self, x: torch.Tensor, context: torch.Tensor, mask,
+                context_indices) -> torch.Tensor:
+        q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
+        shared = k.dim() == q.dim() - 1                  # (b, m, c)
+        if context_indices is not None and shared:
+            idx = torch.as_tensor(np.asarray(context_indices),
+                                  dtype=torch.long, device=context.device)
+            k, v = k[:, idx], v[:, idx]                  # (b, f, m_tok, c)
+            mask, shared = None, False
+        elif mask is None and shared and q.dim() == 4:
+            # unmasked shared context (the text path): the true token count,
+            # never padded
+            out = self._attend_flat(q, k, v, k.shape[1])
+            return self.to_out[0](out)
+        if shared:                          # broadcast context over frames
+            k, v = k[:, None], v[:, None]
+        if mask is not None:
+            mask = mask[:, :, None, None, :]       # (b, f, 1(H), 1(n), m)
+        out = dot_product_attention(self.split(q), self.split(k),
+                                    self.split(v), mask=mask)
+        return self.to_out[0](out.flatten(-2))
 
 
 class TemporalAttention(nn.Module):

@@ -100,7 +100,7 @@ class SpatioAudioTempTransformerBlock(nn.Module):
             x = self.attn1(x, self.norm1)
             if self.use_audio:
                 x = self.attn_audio(x, audio_context, self.norm_audio,
-                                    audio_token_indices)
+                                    context_indices=audio_token_indices)
             if text_context is not None:
                 x = self.attn2(x, text_context, self.norm2)
 

@@ -22,7 +22,7 @@ import types
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
-SOURCES = ("gemm", "attn", "attn_bwd")
+SOURCES = ("gemm", "attn", "attn_bwd", "mix")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -99,8 +99,16 @@ def library() -> types.SimpleNamespace:
     attn.asva_mha_fwd.argtypes = [_I, _I, _I, _I, _I, _I, _I, _F, _VP, _VP,
                                   _VP, _VP, _VP, _VP]
     attn.asva_mha_fwd.restype = _I
+    attn.asva_flat_attn.argtypes = [_I, _I, _I, _I, _I, _I, _F, _VP, _VP, _VP,
+                                    _VP, _VP]
+    attn.asva_flat_attn.restype = _I
     attn_bwd = ctypes.CDLL(paths["attn_bwd"][0])
     attn_bwd.asva_mha_bwd.argtypes = [_I, _I, _I, _I, _I, _I, _I, _F] \
         + [_VP] * 10
     attn_bwd.asva_mha_bwd.restype = _I
-    return types.SimpleNamespace(gemm=gemm, attn=attn, attn_bwd=attn_bwd)
+    mix = ctypes.CDLL(paths["mix"][0])
+    mix.asva_ff_mix.argtypes = [_I, _I, _I, _I, _I, _VP, _VP, _VP, _VP, _I, _I,
+                                _I, _VP, _VP, _VP]
+    mix.asva_ff_mix.restype = _I
+    return types.SimpleNamespace(gemm=gemm, attn=attn, attn_bwd=attn_bwd,
+                                 mix=mix)

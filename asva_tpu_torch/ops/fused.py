@@ -1,4 +1,5 @@
-"""Fused residual sub-layers of the UNet transformer block: kernels B1-B5.
+"""Fused residual sub-layers of the UNet transformer block (kernels B1-B5)
+and the fused temporal mix of FFInflatedConv (B7).
 
 Port of asva_tpu/ops/pallas_fused.py.  Each Pallas TPU kernel becomes a
 composition of hand-written CUDA kernels (`csrc/gemm.cu` K-gemm,
@@ -15,14 +16,20 @@ Pallas body casts to x.dtype:
                                                 per-head log-sum-exp
   B5 mha_bwd         (pallas _mha_bwd_flat)   = flash backward: dQ kernel +
                                                 dK/dV kernel
+  B7 fused_ff_mix    (pallas _ff_mix_flat)    = `csrc/mix.cu` K-mix: one
+                                                product over [head|prev|curr]
+                                                with y + bias in the epilogue
+
+B6 (pallas_attn's flat attention) lives in `ops/flat_attention.py`; it shares
+`csrc/attn.cu` and the `LAUNCHES` table below.
 
 Gradients follow pallas_fused's custom_vjp rules, as
 `torch.autograd.Function`s: `fused_ln_attn` keeps (o, lse) from B4 and its
 backward is the manual composite around B5 (`_attn_bwd`, :399); the
 attention forward never re-runs.  `fused_ln_geglu` and `fused_ln_attn3`
 differentiate their plain composites recomputed in the backward (`_ff_bwd`
-:176, `_attn3_bwd` :566).  A wrapper whose input requires grad always returns
-a tensor with a grad_fn.
+:176, `_attn3_bwd` :566), and so does `fused_ff_mix` (`_mix_bwd` :964).  A
+wrapper whose input requires grad always returns a tensor with a grad_fn.
 
 Dispatch is by device, not by a memory budget: on CPU tensors each wrapper
 computes its plain PyTorch version (`*_plain`, the port's copy of the
@@ -45,7 +52,7 @@ from . import cuda_build
 from .norms import layer_norm_rows
 
 # per-wrapper count of kernel launches (CUDA path only)
-LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0}
+LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "B7": 0}
 
 _EPI_STORE, _EPI_GEGLU, _EPI_BIAS_RES = 0, 1, 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -166,6 +173,20 @@ def ln_attn3_plain(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
     h = ln_attn_plain(h.reshape(b, f * n, c), lst, lbt, wqt, wot, bot, kt,
                       vt, eps3[2], num_heads, kv_lens[2])
     return h.reshape(b, f, n, c)
+
+
+def ff_mix_plain(y, kh, kp, kc, bias) -> torch.Tensor:
+    """B7 plain: y (B, F, N, C) -> y + y_0 Kh^T + y_{f-1} Kp^T + y_f Kc^T + b,
+    the previous frame of frame 0 being frame 0.  Kh/Kp/Kc (C, C) in Linear
+    layout (out, in).  The body of pallas `_mix_kernel`: the three products
+    accumulate in fp32, y and the bias are added in fp32, one cast (pallas
+    `_ff_mix_reference` rounds each product to y.dtype instead)."""
+    y32 = y.float()
+    kh, kp, kc = (w.to(y.dtype).float() for w in (kh, kp, kc))
+    zp = y32 @ kp.t()
+    mix = y32[:, :1] @ kh.t() + torch.cat([zp[:, :1], zp[:, :-1]], dim=1)
+    mix = mix + y32 @ kc.t()
+    return (y32 + mix + bias.to(y.dtype).float().reshape(-1)).to(y.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -381,6 +402,37 @@ def _ln_attn3_fwd(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
     return h.view(b, f, n, c)
 
 
+def _ff_mix_fwd(y, kh, kp, kc, bias):
+    if y.device.type == "cpu":
+        return ff_mix_plain(y, kh, kp, kc, bias)
+    if y.dim() != 4:
+        raise ValueError(f"y must be (B, F, N, C), got {tuple(y.shape)}")
+    b, f, n, c = y.shape
+    bias = bias.reshape(-1)
+    lib = _prepare(y, bias)
+    _check_shape("bias", bias, (c,))
+    tile_k = 32 if y.dtype == torch.bfloat16 else 16
+    if c % tile_k:
+        raise ValueError(f"K-mix takes a channel count that is a multiple of "
+                         f"{tile_k} for {y.dtype}, got {c}")
+    for name, w in (("kh", kh), ("kp", kp), ("kc", kc)):
+        # a column block of a Linear(3C, C) weight is read in place
+        _check_shape(name, w, (c, c))
+        if (w.device != y.device or w.dtype != y.dtype or w.stride(1) != 1
+                or w.stride(0) % 8 or w.data_ptr() % 16):
+            raise ValueError(f"{name}: needs {y.dtype} on {y.device} with "
+                             "unit column stride, a row stride that is a "
+                             "multiple of 8 and 16-byte alignment")
+    out = torch.empty_like(y)
+    rc = lib.mix.asva_ff_mix(
+        _DTYPES[y.dtype], b, f, n, c, y.data_ptr(), kh.data_ptr(),
+        kp.data_ptr(), kc.data_ptr(), kh.stride(0), kp.stride(0),
+        kc.stride(0), bias.data_ptr(), out.data_ptr(), _stream(y))
+    _raise_on(lib, rc, "K-mix")
+    LAUNCHES["B7"] += 1
+    return out
+
+
 # --------------------------------------------------------------------------
 # autograd rules
 # --------------------------------------------------------------------------
@@ -511,6 +563,22 @@ class _LnAttn3(torch.autograd.Function):
             ctx.needs_input_grad[3:], g)
 
 
+class _FfMix(torch.autograd.Function):
+    """pallas_fused.fused_ff_mix: kernel forward, backward through the plain
+    composite (_mix_bwd :964)."""
+
+    @staticmethod
+    def forward(ctx, y, kh, kp, kc, bias):
+        ctx.save_for_backward(y, kh, kp, kc, bias)
+        return _ff_mix_fwd(y, kh, kp, kc, bias)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        return _plain_vjp(ff_mix_plain, ctx.saved_tensors,
+                          ctx.needs_input_grad, g)
+
+
 # --------------------------------------------------------------------------
 # public wrappers
 # --------------------------------------------------------------------------
@@ -556,3 +624,12 @@ def fused_ln_attn3(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
             + _cast(x, lst, lbt, wqt, wot, bot) + (kt, vt))
     eps3, kv_lens = tuple(eps3), tuple(kv_lens)
     return _LnAttn3.apply(eps3, num_heads, kv_lens, *args)
+
+
+def fused_ff_mix(y, kh, kp, kc, bias) -> torch.Tensor:
+    """B7: y (B, F, N, C) -> y + the first/previous/current-frame 3-tap
+    temporal linear mix.  kh, kp, kc (C, C) in Linear layout (out, in) — the
+    column blocks [head | prev | curr] of `conv_temp.weight` (C, 3C), which
+    the kernel reads in place; bias (C,) or (1, C).  Not wired into
+    FFInflatedConv, as in asva_tpu (primitives.temporal_mix serves it)."""
+    return _FfMix.apply(y, *_cast(y, kh, kp, kc, bias))

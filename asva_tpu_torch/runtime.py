@@ -17,18 +17,24 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import math
 import os
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from .diffusion.schedules import DiffusionSchedule
+from .models.avsync import AVSyncClassifier
+from .models.clip_text import CLIPTextConfig, CLIPTextModel
+from .models.evalnets import InceptionI3D
 from .models.imagebind_audio import ImageBindAudioConfig, SegmaskAudioEncoder
 from .models.unet3d import AudioUNet3D, UNet3DConfig
 from .models.vae import AutoencoderKL, VAEConfig
 from .pipelines.animation import AnimationPipeline
+
+log = logging.getLogger("asva_tpu_torch")
 
 # parameters the reference initialises to zero: the FF temporal mixes and
 # the temporal attention's output projection
@@ -39,13 +45,16 @@ _SMALL_NORMAL = ("pos_embed", "bias_k", "bias_v")
 
 @torch.no_grad()
 def init_parameters_(module: nn.Module, generator: torch.Generator,
-                     randomize_all: bool = False) -> nn.Module:
+                     randomize_all: bool = False,
+                     gain: float = 1.0) -> nn.Module:
     """Seeded random init in the reference's scheme: fan-in normal
     (std 1/sqrt(fan_in)) for weights, zeros for biases and the zero-init
     temporal layers, ones/zeros for norms, normal(0.02) for the audio
     tower's positional table and bias_k/v.  randomize_all=True draws every
     parameter, the zero-init ones included (norm scales 1 + 0.1 N, biases
-    and zero-init vectors 0.1 N), so that every sub-layer contributes."""
+    and zero-init vectors 0.1 N), so that every sub-layer contributes.
+    `gain` scales the fan-in std of the weights: sqrt(2) keeps a signal's
+    scale through the deep conv + ReLU metric networks."""
     for name, p in module.named_parameters():
         def normal_(std, mean=0.0):
             p.copy_(torch.randn(p.shape, generator=generator,
@@ -61,21 +70,39 @@ def init_parameters_(module: nn.Module, generator: torch.Generator,
             if zero and not randomize_all:
                 p.zero_()
             else:
-                normal_(1.0 / math.sqrt(p[0].numel()))
+                normal_(gain / math.sqrt(p[0].numel()))
         elif leaf == "bias" or any(s in name for s in _ZERO_INIT):
             normal_(0.1) if randomize_all else p.zero_()
         else:  # norm scales
             normal_(0.1, 1.0) if randomize_all else p.fill_(1.0)
+    # BatchNorm running statistics: identity (mean 0, variance 1), or with
+    # randomize_all mean 0.1 N and variance 1 + 0.1 |N|
+    for name, buf in module.named_buffers():
+        leaf = name.rsplit(".", 1)[-1]
+        noise = (torch.randn(buf.shape, generator=generator,
+                             device=buf.device, dtype=torch.float32) * 0.1
+                 if randomize_all and leaf.startswith("running_") else 0.0)
+        if leaf == "running_mean":
+            buf.copy_(torch.zeros_like(buf) + noise)
+        elif leaf == "running_var":
+            buf.copy_(torch.ones_like(buf) + abs(noise))
+        elif leaf == "num_batches_tracked":
+            buf.zero_()
+        else:
+            raise ValueError(f"no init rule for buffer {name}")
     return module
 
 
+_RELU_GAIN = math.sqrt(2.0)
+
+
 def _build(factory, device, dtype, seed: int, randomize_all: bool,
-           train: bool = False):
+           train: bool = False, gain: float = 1.0):
     with torch.device("meta"):
         module = factory()
     module = module.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
-    init_parameters_(module, gen, randomize_all)
+    init_parameters_(module, gen, randomize_all, gain)
     if train:
         return module.train()
     return module.to(dtype).eval().requires_grad_(False)
@@ -106,6 +133,118 @@ def build_audio_encoder(n_segment: int = 12,
     cfg = config or ImageBindAudioConfig()
     return _build(lambda: SegmaskAudioEncoder(cfg, n_segment), device, dtype,
                   seed, randomize_all)
+
+
+def _find_weights(path: str) -> Optional[str]:
+    """The weights file of a module directory in the reference's layout, a
+    file path as it is, or None."""
+    if os.path.isfile(path):
+        return path
+    for name in ("diffusion_pytorch_model.safetensors",
+                 "diffusion_pytorch_model.bin", "pytorch_model.safetensors",
+                 "pytorch_model.bin", "model.safetensors"):
+        p = os.path.join(path, name)
+        if os.path.isfile(p):
+            return p
+    return None
+
+
+def load_torch_state(path: str) -> Dict[str, torch.Tensor]:
+    """A .bin / .pt / .safetensors state dict as CPU tensors."""
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+        return load_file(path)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict) and "state_dict" in state:
+        state = state["state_dict"]
+    if isinstance(state, dict) and "model" in state and all(
+            torch.is_tensor(v) for v in state["model"].values()):
+        state = state["model"]
+    return state
+
+
+def build_text_encoder(config: CLIPTextConfig = CLIPTextConfig(),
+                       device="cuda", dtype=torch.bfloat16, seed: int = 3,
+                       randomize_all: bool = False,
+                       weights_dir: Optional[str] = None) -> CLIPTextModel:
+    """The SD1.5 CLIP text encoder.  `weights_dir`: the checkpoint's
+    text_encoder/ directory (HF CLIPTextModel keys), loaded strictly."""
+    model = _build(lambda: CLIPTextModel(config), device, dtype, seed,
+                   randomize_all)
+    path = _find_weights(weights_dir) if weights_dir else None
+    if path:
+        state = load_torch_state(path)
+        state.pop("text_model.embeddings.position_ids", None)  # an index
+        model.load_state_dict(state, strict=True)
+    elif weights_dir:
+        log.warning("text_encoder: no weights under %s — random init",
+                    weights_dir)
+    return model
+
+
+def build_avsync_classifier(weights_dirs=None, device="cuda",
+                            dtype=torch.float32, seed: int = 4,
+                            randomize_all: bool = False) -> AVSyncClassifier:
+    """The AVSync classifier in eval mode.  `weights_dirs`: {'audio_encoder':
+    dir, 'video_encoder': dir, 'head': dir} (the reference's per-module
+    exports, already in this key space) or the directory that holds the
+    three; a module whose weights are missing keeps its random init, with a
+    warning."""
+    model = _build(AVSyncClassifier, device, dtype, seed, randomize_all,
+                   gain=_RELU_GAIN)
+    if isinstance(weights_dirs, str):
+        weights_dirs = {m: os.path.join(weights_dirs, m)
+                        for m in ("audio_encoder", "video_encoder", "head")}
+    for mod, d in (weights_dirs or {}).items():
+        path = _find_weights(d)
+        if path is None:
+            log.warning("avsync: no weights found for module %r under %s — "
+                        "that module keeps RANDOM init (scores meaningless "
+                        "for metrics)", mod, d)
+            continue
+        getattr(model, mod).load_state_dict(load_torch_state(path),
+                                            strict=True)
+    return model
+
+
+_I3D_ALIASES = ((".batch3d.", ".bn."), (".b1.0.", ".b1a."),
+                (".b1.1.", ".b1b."), (".b2.0.", ".b2a."),
+                (".b2.1.", ".b2b."), (".b3.1.", ".b3b."))
+
+
+def build_i3d_classifier(num_classes: int = 400,
+                         weights_path: Optional[str] = None,
+                         bn_eps: float = 1e-5, device="cuda",
+                         dtype=torch.float32, seed: int = 5,
+                         randomize_all: bool = False):
+    """The Inception-v1 I3D, as the FVD feature net (400 logits) or with a
+    classifier head of `num_classes`.  A raw `i3d_pretrained_400.pt` state
+    dict loads strictly; when num_classes != 400 its logits head is dropped
+    and the fresh one kept.  Returns (model, missing keys or None)."""
+    model = _build(lambda: InceptionI3D(num_classes, bn_eps), device, dtype,
+                   seed, randomize_all, gain=_RELU_GAIN)
+    if not (weights_path and os.path.isfile(weights_path)):
+        if weights_path:
+            log.warning("i3d: %s missing — random init", weights_path)
+        return model, None
+    state = {}
+    for key, value in load_torch_state(weights_path).items():
+        for old, new in _I3D_ALIASES:   # the stylegan-v blob's names
+            key = key.replace(old, new)
+        state[key] = value
+    if num_classes != 400:
+        state.pop("logits.conv3d.weight", None)
+        state.pop("logits.conv3d.bias", None)
+    result = model.load_state_dict(state, strict=False)
+    missing = [k for k in result.missing_keys
+               if not k.endswith("num_batches_tracked")]
+    allowed = [] if num_classes == 400 else ["logits.conv3d.weight",
+                                             "logits.conv3d.bias"]
+    if sorted(missing) != sorted(allowed) or result.unexpected_keys:
+        raise RuntimeError(
+            f"i3d: {weights_path} does not match: missing {missing[:8]}, "
+            f"unexpected {result.unexpected_keys[:8]}")
+    return model, missing
 
 
 def _config_from_dict(cls, d: dict):

@@ -16,8 +16,21 @@ Phases, in order; any failure exits non-zero and prints no result:
                 autograd of the plain versions, and B4 mha_fwd (o, lse) and
                 B5 mha_bwd (dq, dk, dv) at every level's training shapes
                 (batch 4 of 12 frames: attn1, audio, text), beside one
-                scaled_dot_product_attention call as a yardstick;
-  3. unet     — the full-width UNet3DConfig() (seeded random weights, every
+                scaled_dot_product_attention call as a yardstick; B6
+                vmem_attention / vmem_cross_attention at one request's flat
+                shapes (16 batch-heads; every level's frame-0 self-attention,
+                229 audio tokens padded to 256 and unpadded, 77 text tokens
+                of 128) with its gradients and the same yardstick; B7
+                fused_ff_mix at FFInflatedConv's shapes on the column blocks
+                of one (C, 3C) weight, with its gradients;
+  3. unet     — first the `ln=None` attention modules at full width
+                (FFSpatialAttention; CrossAttention on text and on unmasked
+                audio tokens; 32x32 and 16x16 levels) against
+                dot_product_attention on the same projections, which must
+                launch B6, and FFInflatedConv's own mix redone through
+                fused_ff_mix on its conv output and conv_temp weight, which
+                must launch B7 and agree with the module; then the
+                full-width UNet3DConfig() (seeded random weights, every
                 parameter randomised), x (2, 12, 32, 32, 4): fuse_blocks=True
                 (B2 + B3) vs fuse_blocks=False (B1 + B3) vs all-plain, in
                 bf16 and fp32; the fuse_blocks=False run is the B1 path;
@@ -39,6 +52,21 @@ Phases, in order; any failure exits non-zero and prints no result:
                 restore_latest through the CheckpointManager, and at batch 1
                 in fp32 the loss and the trainable gradients with kernels
                 against those with the plain sub-layers.
+  6. judge    — token ids made from a seed go through the full-width CLIP
+                text encoder (12 layers, 768 wide); that encoding, not a
+                random tensor, conditions 3 pipeline requests as in phase 4;
+                the 3 generated clips and 3 seeded random "ground truth"
+                clips go through the frame transforms and the five metric
+                callables of build_eval_models at their published sizes
+                (InceptionV3 on 229^2 frames, Inception-I3D on 12 x 224^2,
+                the AVSync classifier on 12 x 224^2 and a 128 x 204 mel,
+                ImageBind-huge vision, text and audio towers), then
+                frechet_distance, compute_relsync and compute_alignsync:
+                every output finite and of its shape, IA / IT cosines in
+                [-1, 1], RelSync and AlignSync in [0, 1], and the bf16
+                bundle's features within 0.1 relative RMS of the fp32 one's
+                (some 50 to 90 conv layers deep, each rounding to bf16).
+                Generation there must launch B2 + B3 and never B6.
 Launch counters are zeroed just before each path run and read just after.
 
 Tolerances (max |kernel - plain| over an output):
@@ -93,10 +121,15 @@ KERNELS = {
            ["asva_tpu_torch/csrc/attn.cu"]),
     "B5": ("asva_tpu/ops/pallas_fused.py:785", "pallas_fused._mha_bwd_flat",
            ["asva_tpu_torch/csrc/attn_bwd.cu"]),
+    "B6": ("asva_tpu/ops/pallas_attn.py:45", "pallas_attn._attention_flat",
+           ["asva_tpu_torch/csrc/attn.cu"]),
+    "B7": ("asva_tpu/ops/pallas_fused.py:923", "pallas_fused._ff_mix_flat",
+           ["asva_tpu_torch/csrc/mix.cu"]),
 }
 # the case whose bf16 times go into the kernels line
 TIMED_CASE = {"B1": "attn1 32x32", "B2": "attn3 32x32", "B3": "ff 32x32",
-              "B4": "attn1 32x32", "B5": "attn1 32x32"}
+              "B4": "attn1 32x32", "B5": "attn1 32x32", "B6": "attn1 32x32",
+              "B7": "mix 32x32"}
 # B1 and B3 also run on the training path: their bf16 times at its shapes
 TRAIN_TIMED_CASE = {"B1": "train attn1 32x32", "B3": "train ff 32x32"}
 
@@ -218,6 +251,49 @@ def flash_cases(gen, dtype):
     return cases
 
 
+def _flat_attention(q, k, v, kv_len=None):
+    from asva_tpu_torch.ops import flat_attention
+    if kv_len is None:
+        return flat_attention.vmem_attention(q, k, v)
+    return flat_attention.vmem_cross_attention(q, k, v, kv_len)
+
+
+def flat_cases(gen, dtype):
+    """(kernel, label, wrapper, args, plain fn, operations, bytes) for B6 at
+    the flat shapes of one request (2 clips x 8 heads = 16 batch-heads, 12
+    frames) and B7 at FFInflatedConv's.  Operations and bytes count the
+    kv_len rows that are attended, not a caller's padding."""
+    import torch
+    from asva_tpu_torch.ops import flat_attention, fused
+    cases = []
+    bh = B * HEADS
+    item = torch.empty((), dtype=dtype).element_size()
+    shapes = [(f"attn1 {level}", F * n, n, c // HEADS, None)
+              for level, (n, c) in SD_LEVELS.items()]
+    sq, d = F * SD_LEVELS["32x32"][0], SD_LEVELS["32x32"][1] // HEADS
+    shapes += [("audio 32x32 padded", sq, 256, d, 229),
+               ("audio 32x32 unpadded", sq, 229, d, 229),
+               ("text 32x32 padded", sq, 128, d, TEXT_TOKENS)]
+    for name, sq, sk, d, kv_len in shapes:
+        q, k, v = (_rand(gen, (bh, s, d), dtype) for s in (sq, sk, sk))
+        rows = sk if kv_len is None else kv_len
+        k[:, rows:] = 0
+        v[:, rows:] = 0
+        cases.append(("B6", f"{name} BH={bh} Sq={sq} Sk={sk} kv={rows} d={d}",
+                      _flat_attention, [q, k, v, kv_len],
+                      flat_attention.attention_flat_plain,
+                      4 * bh * sq * rows * d,
+                      2 * bh * (sq + rows) * d * item))
+    for level, (n, c) in SD_LEVELS.items():
+        w = _rand(gen, (c, 3 * c), dtype, (3 * c) ** -0.5)
+        args = [_rand(gen, (B, F, n, c), dtype), w[:, :c], w[:, c:2 * c],
+                w[:, 2 * c:], _rand(gen, (1, c), dtype, 0.1)]
+        cases.append(("B7", f"mix {level} C={c} M={B * F * n}",
+                      fused.fused_ff_mix, args, fused.ff_mix_plain,
+                      2 * B * F * n * 3 * c * c, None))
+    return cases
+
+
 def _tensors(x):
     import torch
     if torch.is_tensor(x):
@@ -248,6 +324,11 @@ def sdpa_ms(kernel, args):
     yardstick only, the port never calls it."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
+    if kernel == "B6":          # one head per batch-head, attended rows only
+        q, k, v, kv_len = args
+        with torch.no_grad():
+            return time_ms(lambda: sdpa(q[None], k[None, :, :kv_len],
+                                        v[None, :, :kv_len]))
     q, k, v = args[:3]
     scale = args[-1]
 
@@ -290,8 +371,9 @@ def phase_kernels(report):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for make in (kernel_cases, flash_cases):
-            for kernel, label, wrapper, args, plain, flops in make(gen, dtype):
+        for make in (kernel_cases, flash_cases, flat_cases):
+            for kernel, label, wrapper, args, plain, flops, *rest in make(
+                    gen, dtype):
                 with torch.no_grad():
                     out = wrapper(*args)
                     ref = plain(*args)
@@ -299,6 +381,8 @@ def phase_kernels(report):
                 err, tol, scale = _compare(out, ref, dname)
                 nbytes = sum(t.numel() * t.element_size()
                              for t in _tensors(args) + _tensors(out))
+                if rest and rest[0] is not None:
+                    nbytes = rest[0]
                 del out, ref
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = flops / PEAK_FLOPS[dname] * 1e3
@@ -311,10 +395,9 @@ def phase_kernels(report):
                 with torch.no_grad():
                     row["ms"] = time_ms(lambda: wrapper(*args))
                     row["plain_ms"] = time_ms(lambda: plain(*args), 1, 3)
-                if kernel in ("B4", "B5"):
-                    if dname == "bfloat16":
-                        row["library_ms"] = sdpa_ms(kernel, args)
-                else:
+                if kernel in ("B4", "B5", "B6") and dname == "bfloat16":
+                    row["library_ms"] = sdpa_ms(kernel, args)
+                if kernel not in ("B4", "B5"):
                     g_err, g_tol, _ = gradient_check(wrapper, plain, args,
                                                      dname)
                     row.update(grad_max_abs_err=g_err, grad_tol=g_tol)
@@ -365,6 +448,86 @@ def reset_counts():
 def read_counts():
     from asva_tpu_torch.ops import fused
     return dict(fused.LAUNCHES)
+
+
+def phase_attend(report):
+    """The `ln=None` forms at full width: FFSpatialAttention and
+    CrossAttention (77 text tokens, 229 unmasked audio tokens) at the 32x32
+    and 16x16 levels against dot_product_attention on the same projections;
+    then FFInflatedConv's temporal mix redone through fused_ff_mix.  The
+    counters are zeroed before and read after: B6 and B7 must have launched,
+    B1-B5 not.  Tolerances as in phase 2."""
+    import torch
+    from asva_tpu_torch.models.unet3d import primitives
+    from asva_tpu_torch.ops import fused
+    from asva_tpu_torch.ops.attention import dot_product_attention
+    from asva_tpu_torch.runtime import _build
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows, calls = [], 0
+    reset_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for level in ("32x32", "16x16"):
+            n, c = SD_LEVELS[level]
+            x = _rand(gen, (B, F, n, c), dtype)
+            spatial = _build(lambda: primitives.FFSpatialAttention(
+                c, HEADS, c // HEADS), "cuda", dtype, 20, True)
+            cross = _build(lambda: primitives.CrossAttention(
+                c, HEADS, c // HEADS, 768), "cuda", dtype, 21, True)
+            text = _rand(gen, (B, TEXT_TOKENS, 768), dtype)
+            audio = _rand(gen, (B, 229, 768), dtype)
+            with torch.no_grad():
+                for name, mod, ctx in (("spatial", spatial, None),
+                                       ("text", cross, text),
+                                       ("audio", cross, audio)):
+                    got = mod(x) if ctx is None else mod(x, ctx)
+                    calls += 1
+                    src = x[:, :1] if ctx is None else ctx[:, None]
+                    ref = dot_product_attention(
+                        mod.split(mod.to_q(x)), mod.split(mod.to_k(src)),
+                        mod.split(mod.to_v(src)))
+                    ref = mod.to_out[0](ref.flatten(-2))
+                    err, tol, scale = _compare(got, ref, dname)
+                    rows.append(dict(module=name, level=level, dtype=dname,
+                                     max_abs_err=err, tol=tol, ok=err <= tol))
+                    log(f"  ln=None {name:8s} {level} {dname:8s} err "
+                        f"{err:.3e} (tol {tol:.3e})  "
+                        f"{'ok' if err <= tol else 'FAIL'}")
+    counts = read_counts()
+
+    # FFInflatedConv at the 32x32 level: the module's own output against its
+    # conv followed by fused_ff_mix on the blocks of conv_temp.weight
+    reset_counts()
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        c = SD_LEVELS["32x32"][1]
+        conv = _build(lambda: primitives.FFInflatedConv(c, c), "cuda", dtype,
+                      22, True)
+        x = _rand(gen, (B, F, 32, 32, c), dtype)
+        with torch.no_grad():
+            ref = conv(x)
+            y = primitives.InflatedConv.forward(conv, x)
+            w = conv.conv_temp.weight
+            got = fused.fused_ff_mix(
+                y.reshape(B, F, 32 * 32, c), w[:, :c], w[:, c:2 * c],
+                w[:, 2 * c:], conv.conv_temp.bias).reshape(ref.shape)
+        # bf16: the module rounds each of its three products and four sums,
+        # the kernel sums in fp32 and rounds once: 2**-5 of max|module|
+        err, tol, scale = _compare(got, ref, dname, GRAD_TOL)
+        rows.append(dict(module="ff_inflated_conv mix", level="32x32",
+                         dtype=dname, max_abs_err=err, tol=tol,
+                         ok=err <= tol))
+        log(f"  fused_ff_mix vs FFInflatedConv 32x32 {dname:8s} err "
+            f"{err:.3e} (tol {tol:.3e})  {'ok' if err <= tol else 'FAIL'}")
+    mix_counts = read_counts()
+    report["attend"] = dict(rows=rows, launches=counts,
+                            mix_launches=mix_counts)
+    others = [k for k in counts if k != "B6" and counts[k]]
+    if (not all(r["ok"] for r in rows) or counts["B6"] != calls or others
+            or mix_counts["B7"] != 2):
+        fail(f"ln=None modules / fused_ff_mix: {report['attend']}")
+    torch.cuda.empty_cache()
+    return counts["B6"], mix_counts["B7"]
 
 
 def phase_unet(report):
@@ -740,6 +903,162 @@ def phase_train(report):
     return launches
 
 
+# ------------------------------------------------------------- phase 6 ---
+
+def _prompt_ids(seed, n_words):
+    """(1, 77) CLIP token ids from a seed: start-of-text, n_words word ids,
+    end-of-text padding (no vocabulary file ships with the repository)."""
+    import torch
+    ids = torch.full((1, TEXT_TOKENS), 49407, dtype=torch.long)
+    ids[0, 0] = 49406
+    ids[0, 1:1 + n_words] = torch.randint(
+        256, 49000, (n_words,), generator=torch.Generator().manual_seed(seed))
+    return ids.cuda()
+
+
+def _judge(models, gen_videos, gt_videos, mels, ids):
+    """Every metric of the bundle on (3, 12, 256, 256, 3) clips in [0, 1]:
+    features, similarities, scores and the reducers."""
+    import torch
+    from asva_tpu_torch.data.transforms import (clip_frame_transform,
+                                                fid_frame_transform,
+                                                fvd_frame_transform)
+    from asva_tpu_torch.eval.frechet import frechet_distance
+    from asva_tpu_torch.eval.metrics import (compute_alignsync,
+                                             compute_avsync_scores,
+                                             compute_relsync)
+    n, f = gen_videos.shape[:2]
+    out = {}
+    for name, videos in (("gen", gen_videos), ("gt", gt_videos)):
+        fid = models.fid_features(fid_frame_transform(videos).flatten(0, 1))
+        out[f"fid_{name}"] = fid.reshape(n, f, -1)
+        out[f"fvd_{name}"] = models.fvd_features(fvd_frame_transform(videos))
+    frames = clip_frame_transform(gen_videos).flatten(0, 1)
+    out["ia"] = models.ia_sim(frames, mels.repeat_interleave(f, dim=0))
+    out["it"] = models.it_sim(frames, ids.repeat_interleave(f, dim=0))
+    out["sync_gen"] = torch.from_numpy(compute_avsync_scores(
+        models.avsync_score, mels, gen_videos))
+    reduced = dict(
+        # FID leaves out frame 0, the conditioning frame
+        FID=frechet_distance(out["fid_gt"][:, 1:].flatten(0, 1),
+                             out["fid_gen"][:, 1:].flatten(0, 1)),
+        FVD=frechet_distance(out["fvd_gt"], out["fvd_gen"]),
+        IA=out["ia"].reshape(n, f)[:, 1:].mean().item(),
+        IT=out["it"].reshape(n, f)[:, 1:].mean().item(),
+        RelSync=compute_relsync(models.avsync_score, mels, gen_videos,
+                                ref_videos=gt_videos).tolist(),
+        AlignSync=compute_alignsync(models.avsync_score, models.ia_sim, mels,
+                                    gen_videos, gt_videos).tolist())
+    return out, reduced
+
+
+def phase_judge(report):
+    import torch
+    from asva_tpu_torch.eval.harness import build_eval_models
+    from asva_tpu_torch.runtime import (build_text_encoder,
+                                        load_animation_pipeline)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_start = time.perf_counter()
+
+    # prompt ids -> CLIP text encoder -> the (b, 77, 768) conditioning
+    encoder = build_text_encoder(device="cuda", dtype=torch.bfloat16, seed=3,
+                                 randomize_all=True)
+    prompts = [_prompt_ids(600 + i, 4 + i) for i in range(3)]
+    with torch.no_grad():
+        encodings = [encoder(ids) for ids in prompts]
+        null_text = encoder(_prompt_ids(0, 0))
+    text_ok = all(tuple(e.shape) == (1, TEXT_TOKENS, 768)
+                  and bool(torch.isfinite(e).all()) for e in encodings)
+    del encoder
+
+    pipe = load_animation_pipeline(device="cuda", dtype=torch.bfloat16,
+                                   seed=0, randomize_all=True,
+                                   null_text_encoding=null_text)
+    reset_counts()
+    videos, mels, seconds = [], [], []
+    for i, text in enumerate(encodings):
+        g = _gen(610 + i)
+        image = torch.rand((1, 256, 256, 3), generator=g, device="cuda")
+        wave = torch.randn((1, 32000), generator=g, device="cuda") * 0.1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mel = pipe.encode_audio_waveform([wave])
+        videos.append(pipe(image, mel, text, generator=_gen(620 + i),
+                           video_length=F, num_inference_steps=5,
+                           sampler="ddim", audio_guidance_scale=4.0,
+                           text_guidance_scale=1.0))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        mels.append(mel)
+    counts = read_counts()
+    del pipe
+    torch.cuda.empty_cache()
+    gen_videos = torch.cat(videos).float()
+    mels = torch.cat(mels).float()
+    gt_videos = torch.rand(gen_videos.shape, generator=_gen(630),
+                           device="cuda")
+    ids = torch.cat(prompts)
+
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        t0 = time.perf_counter()
+        models = build_eval_models("cuda", dtype, seed=0, randomize_all=True)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        feats, reduced = _judge(models, gen_videos, gt_videos, mels, ids)
+        torch.cuda.synchronize()
+        results[dname] = (feats, reduced, build_s, time.perf_counter() - t0,
+                          models.random_nets)
+        del models
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+
+    feats, reduced, _, _, random_nets = results["float32"]
+    n, f = gen_videos.shape[:2]
+    shapes = dict(fid_gen=(n, f, 2048), fid_gt=(n, f, 2048), fvd_gen=(n, 400),
+                  fvd_gt=(n, 400), ia=(n * f,), it=(n * f,), sync_gen=(n,))
+    shape_ok = all(tuple(results[d][0][k].shape) == shape
+                   and bool(torch.isfinite(results[d][0][k]).all())
+                   for d in results for k, shape in shapes.items())
+    reduced_ok = all(
+        math.isfinite(r["FID"]) and math.isfinite(r["FVD"])
+        and -1 - 1e-3 <= r["IA"] <= 1 + 1e-3
+        and -1 - 1e-3 <= r["IT"] <= 1 + 1e-3
+        and len(r["RelSync"]) == n and len(r["AlignSync"]) == n
+        and all(0.0 <= x <= 1.0 for x in r["RelSync"] + r["AlignSync"])
+        for r in (results[d][1] for d in results))
+    # bf16 bundle vs fp32 bundle, same seeds (the bf16 weights are the fp32
+    # ones rounded): relative RMS of each feature set
+    rel_rms = {k: ((results["bfloat16"][0][k] - feats[k]).norm()
+                   / feats[k].norm()).item() for k in shapes}
+    rms_ok = all(rel_rms[k] <= 0.1 for k in ("fid_gen", "fid_gt", "fvd_gen",
+                                             "fvd_gt"))
+    counts_ok = counts["B2"] > 0 and counts["B3"] > 0 and counts["B6"] == 0
+    report["judge"] = dict(
+        seconds_total=time.perf_counter() - t_start,
+        seconds_per_clip=seconds, launches=counts,
+        build_seconds={d: results[d][2] for d in results},
+        judge_seconds={d: results[d][3] for d in results},
+        max_memory_allocated=peak, random_nets=random_nets,
+        reduced={d: results[d][1] for d in results},
+        bf16_rel_rms_vs_fp32=rel_rms, text_ok=text_ok, shape_ok=shape_ok,
+        reduced_ok=reduced_ok, rms_ok=rms_ok, counts_ok=counts_ok)
+    log(f"  judge: {report['judge']['seconds_total']:.1f} s in all; seconds "
+        f"per clip {[round(x, 3) for x in seconds]}; bundle build "
+        f"{report['judge']['build_seconds']} s, metrics "
+        f"{report['judge']['judge_seconds']} s; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; launches {counts}")
+    log(f"  judge: fp32 {reduced}")
+    log(f"  judge: bf16 {results['bfloat16'][1]}")
+    log(f"  judge: bf16 vs fp32 relative RMS {rel_rms}")
+    if not (text_ok and shape_ok and reduced_ok and rms_ok and counts_ok):
+        fail(f"judge checks: {report['judge']}")
+    return counts
+
+
 def _kernel_kind(name: str) -> str:
     """Coarse family of a device kernel, from its name."""
     if "(anonymous namespace)::gemm_" in name:
@@ -748,6 +1067,8 @@ def _kernel_kind(name: str) -> str:
         return "port B4 (K-attn)"
     if "(anonymous namespace)::bwd_" in name:
         return "port B5"
+    if "(anonymous namespace)::mix_" in name:
+        return "port K-mix (B7)"
     if any(s in name for s in ("fprop", "dgrad", "wgrad", "cudnn")):
         return "cuDNN convolution"
     if any(s in name for s in ("xmma_gemm_f32f32", "sgemm", "gemmSN",
@@ -899,22 +1220,31 @@ def main() -> int:
 
     log("phase 2: kernels vs plain")
     rows = phase_kernels(report)
-    log("phase 3: unet")
+    log("phase 3: ln=None modules, fused_ff_mix, unet")
+    b6_count, b7_count = phase_attend(report)
     b1_counts = phase_unet(report)
     log("phase 4: pipeline")
     pipe_counts = phase_pipeline(report)
     log("phase 5: train")
     train_counts = phase_train(report)
+    log("phase 6: judge")
+    judge_counts = phase_judge(report)
+    if pipe_counts["B6"] or train_counts["B6"] or judge_counts["B6"]:
+        fail("generation or training launched B6: they go through B1-B5")
 
     # launches on each driven path: B1 and B3 run in generation and training
     by_path = {
         "B1": {"unet fuse_blocks=False": b1_counts["B1"],
                "train, 4 steps": train_counts["B1"]},
-        "B2": {"pipeline, 3 requests": pipe_counts["B2"]},
+        "B2": {"pipeline, 3 requests": pipe_counts["B2"],
+               "judge, 3 requests": judge_counts["B2"]},
         "B3": {"pipeline, 3 requests": pipe_counts["B3"],
-               "train, 4 steps": train_counts["B3"]},
+               "train, 4 steps": train_counts["B3"],
+               "judge, 3 requests": judge_counts["B3"]},
         "B4": {"train, 4 steps": train_counts["B4"]},
-        "B5": {"train, 4 steps": train_counts["B5"]}}
+        "B5": {"train, 4 steps": train_counts["B5"]},
+        "B6": {"ln=None attention modules": b6_count},
+        "B7": {"fused_ff_mix on FFInflatedConv's conv": b7_count}}
     kernels = []
     for name, (replaces, tpu, sources) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (B1-B5) against their plain versions, on a card.
+"""The port's CUDA kernels (B1-B7) against their plain versions, on a card.
 
 Marked `cuda`: each test skips without a CUDA device.  This file imports no
 JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from asva_tpu_torch.ops import fused
+from asva_tpu_torch.ops import flat_attention, fused
 
 pytestmark = pytest.mark.cuda
 
@@ -277,3 +277,96 @@ def test_wrappers_keep_the_autograd_graph(dev):
     assert fused.mha_kvshared(q, kv, kv, 8, None, 0.2).grad_fn is not None
     with torch.no_grad():
         assert fused.fused_ln_attn(x, *sub, kv, kv, 1e-5, 8).grad_fn is None
+
+
+# ------------------------------------------------------------ B6 and B7 ---
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,sq,sk,d,kv_len", [
+    (6, 130, 128, 40, 77),     # zero-padded K/V, masked past kv_len
+    (4, 100, 77, 40, 77),      # unpadded: kv_len == Sk, ragged Sq and Sk
+    (3, 200, 25, 80, None),    # fewer K/V rows than one tile
+    (2, 70, 200, 160, 150),    # d = 160, Sk past one K/V tile
+    (2, 64, 64, 96, 300),      # kv_len >= Sk masks nothing
+])
+def test_b6_on_card(dev, dtype, bh, sq, sk, d, kv_len):
+    """vmem_attention / vmem_cross_attention against attention_flat_plain
+    (which normalises P before rounding; the kernel rounds first: the bf16
+    tolerance covers the order), and their gradients against autograd of
+    the plain version.  K/V rows past kv_len hold garbage, not zeros: they
+    must not be read."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v = (_r(gen, (bh, s, d), dtype) for s in (sq, sk, sk))
+    masked = kv_len is not None and kv_len < sk
+    if masked:                       # a caller's zero padding
+        k[:, kv_len:] = 0
+        v[:, kv_len:] = 0
+    q, k, v = _leaves([q, k, v])
+
+    def run(k, v):
+        if kv_len is None:
+            return flat_attention.vmem_attention(q, k, v)
+        return flat_attention.vmem_cross_attention(q, k, v, kv_len)
+    before = fused.LAUNCHES["B6"]
+    out = run(k, v)
+    assert fused.LAUNCHES["B6"] == before + 1
+    ref = flat_attention.attention_flat_plain(q, k, v, kv_len)
+    _check(out, ref, dtype)
+    _grad_check(out, ref, [q, k, v], dtype)
+    if masked:
+        with torch.no_grad():
+            kn, vn = k.clone(), v.clone()
+            kn[:, kv_len:] = float("nan")
+            vn[:, kv_len:] = float("nan")
+            assert torch.equal(run(kn, vn), out)
+
+
+def test_b6_rejects_bad_input(dev):
+    q = torch.zeros(2, 8, 40, device="cuda")
+    kv = torch.zeros(2, 5, 40, device="cuda")
+    with pytest.raises(TypeError):
+        flat_attention.vmem_attention(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="head dims"):
+        flat_attention.vmem_attention(q[..., :36].contiguous(),
+                                      kv[..., :36].contiguous(),
+                                      kv[..., :36].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        flat_attention.vmem_attention(q, kv.cpu(), kv)
+    with pytest.raises(ValueError, match="kv_len"):
+        flat_attention.vmem_cross_attention(q, kv, kv, 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,f,n,c", [(2, 5, 37, 320), (1, 1, 64, 64),
+                                     (3, 2, 16, 1280)])
+def test_b7_on_card(dev, dtype, b, f, n, c):
+    """fused_ff_mix against ff_mix_plain on the column blocks of one
+    (C, 3C) weight read in place; ragged row counts, one frame (every tap is
+    frame 0), and the gradients against autograd of the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    y, w, bias = _leaves([_r(gen, (b, f, n, c), dtype),
+                          _r(gen, (c, 3 * c), dtype, (3 * c) ** -0.5),
+                          _r(gen, (1, c), dtype, 0.1)])
+    taps = (w[:, :c], w[:, c:2 * c], w[:, 2 * c:])
+    before = fused.LAUNCHES["B7"]
+    out = fused.fused_ff_mix(y, *taps, bias)
+    assert fused.LAUNCHES["B7"] == before + 1
+    ref = fused.ff_mix_plain(y, *taps, bias)
+    _check(out, ref, dtype)
+    _grad_check(out, ref, [y, w, bias], dtype)
+
+
+def test_b7_frame0_clamp_on_card(dev):
+    """Each tap alone, with an identity matrix: head copies frame 0, prev
+    copies frame max(f - 1, 0), curr copies frame f."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    b, f, n, c = 2, 4, 24, 64
+    y = _r(gen, (b, f, n, c), torch.float32)
+    eye, zero = torch.eye(c, device="cuda"), torch.zeros(c, c, device="cuda")
+    bias = torch.zeros(c, device="cuda")
+    head = fused.fused_ff_mix(y, eye, zero, zero, bias) - y
+    prev = fused.fused_ff_mix(y, zero, eye, zero, bias) - y
+    curr = fused.fused_ff_mix(y, zero, zero, eye, bias) - y
+    assert torch.allclose(head, y[:, :1].expand_as(y), atol=1e-6)
+    assert torch.allclose(prev, torch.cat([y[:, :1], y[:, :-1]], 1), atol=1e-6)
+    assert torch.allclose(curr, y, atol=1e-6)

@@ -54,8 +54,8 @@ def close(got, want, tol):
 # ---------------------------------------------------------------- rules ---
 
 def test_port_imports_no_jax():
-    """asva_tpu_torch — every sub-package, training/ included — never
-    imports jax, flax, optax, orbax or asva_tpu."""
+    """asva_tpu_torch — every sub-package, training/, eval/ and data/
+    included — never imports jax, flax, optax, orbax or asva_tpu."""
     pat = re.compile(
         r"^\s*(import|from)\s+(jax|flax|optax|orbax|asva_tpu)(\.|\s|$)", re.M)
     offenders, seen = [], set()
@@ -71,6 +71,12 @@ def test_port_imports_no_jax():
     assert {os.path.join("training", n) for n in
             ("__init__.py", "optim.py", "animation_trainer.py",
              "checkpoint.py")} <= seen
+    assert {os.path.join(*n.split("/")) for n in
+            ("ops/flat_attention.py", "ops/resize.py", "data/transforms.py",
+             "models/avsync/classifier.py", "models/evalnets/i3d.py",
+             "models/evalnets/inception_v3.py", "models/clip_text.py",
+             "models/clip_bpe.py", "models/imagebind_extra.py",
+             "eval/metrics.py", "eval/frechet.py", "eval/harness.py")} <= seen
 
 
 # ---------------------------------------------------------------- norms ---

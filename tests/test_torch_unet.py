@@ -91,7 +91,7 @@ class _TSub(nn.Module):
     def forward(self, x, ctx=None):
         if self.kind == "spatial":
             return self.attn(x, self.norm)
-        return self.attn(x, ctx, self.norm, self.indices)
+        return self.attn(x, ctx, self.norm, context_indices=self.indices)
 
 
 def test_ff_spatial_attention(rng):
@@ -103,6 +103,84 @@ def test_ff_spatial_attention(rng):
 def test_text_cross_attention(rng):
     x, ctx = _x(rng, 2, 3, 10, 16), _x(rng, 2, 7, 12)
     _run(_JSub("cross"), _TSub("cross", ctx_dim=12), rng, x, ctx)
+
+
+def test_ff_spatial_attention_without_ln(rng):
+    """ln=None: the bare attention of x, no LayerNorm and no residual
+    (JAX `_attend`), through the plain version of B6; 3e-5."""
+    x = _x(rng, 2, 3, 10, 16)
+    _run(jp.FFSpatialAttention(2, 8), tp.FFSpatialAttention(16, 2, 8), rng, x)
+
+
+@pytest.mark.parametrize("form", ["text", "masked", "per_frame",
+                                  "per_frame_masked", "gathered"])
+def test_cross_attention_without_ln(rng, form):
+    """ln=None in every form of JAX `CrossAttention._attend`: an unmasked
+    shared context (B6's plain version), a boolean (b, f, m) mask, a
+    per-frame 4-D context with and without a mask, and a static gather;
+    3e-5."""
+    b, f, n, m = 2, 3, 10, 7
+    x = _x(rng, b, f, n, 16)
+    ctx = _x(rng, b, f, m, 12) if form.startswith("per_frame") else _x(
+        rng, b, m, 12)
+    mask = idx = None
+    if form.endswith("masked"):
+        mask = rng.random((b, f, m)) > 0.4
+        mask[..., 0] = True
+    if form == "gathered":
+        idx = np.stack([rng.permutation(m)[:4] for _ in range(f)])
+    jm = jp.CrossAttention(2, 8)
+    jkw = dict(mask=None if mask is None else jnp.asarray(mask),
+               context_indices=idx)
+    p = randomize(jm.init(jax.random.PRNGKey(0), x, ctx, **jkw), rng)
+    want = jm.apply(p, x, ctx, **jkw)
+    tm = port(tp.CrossAttention(16, 2, 8, 12), p)
+    with torch.no_grad():
+        got = tm(t(x), t(ctx), mask=None if mask is None else t(mask),
+                 context_indices=idx)
+    assert got.shape == (b, f, n, 16)
+    close(got, want, 3e-5)
+
+
+def test_attend_dispatches_by_function(rng, monkeypatch):
+    """`_attend` reaches B6 exactly where the JAX modules reach pallas_attn:
+    frame-0 self-attention -> vmem_attention on (b*H, f*n, D) against
+    (b*H, n, D); unmasked 3-D context -> vmem_cross_attention with the true
+    token count; gathered, masked or 4-D context -> dot_product_attention.
+    The fused residual form (with ln) never reaches B6."""
+    calls = []
+    real_self, real_cross = (tp.flat_attention.vmem_attention,
+                             tp.flat_attention.vmem_cross_attention)
+
+    def rec_self(q, k, v):
+        calls.append(("self", tuple(q.shape), tuple(k.shape)))
+        return real_self(q, k, v)
+
+    def rec_cross(q, k, v, kv_len):
+        calls.append(("cross", tuple(q.shape), tuple(k.shape), kv_len))
+        return real_cross(q, k, v, kv_len)
+    monkeypatch.setattr(tp.flat_attention, "vmem_attention", rec_self)
+    monkeypatch.setattr(tp.flat_attention, "vmem_cross_attention", rec_cross)
+    b, f, n, m = 2, 3, 10, 7
+    x, ctx = t(_x(rng, b, f, n, 16)), t(_x(rng, b, m, 12))
+    sa, ca, ln = (tp.FFSpatialAttention(16, 2, 8),
+                  tp.CrossAttention(16, 2, 8, 12), TLN(16))
+    with torch.no_grad():
+        sa(x)
+        ca(x, ctx)
+        assert calls == [("self", (4, 30, 8), (4, 10, 8)),
+                         ("cross", (4, 30, 8), (4, 7, 8), 7)]
+        ca(x, ctx, mask=torch.ones(b, f, m, dtype=torch.bool))
+        ca(x, ctx[:, None].expand(b, f, m, 12))
+        ca(x, ctx, context_indices=np.zeros((f, 2), np.int64))
+        sa(x, ln)
+        ca(x, ctx, ln)
+        ca(x, ctx, ln, context_indices=np.zeros((f, 2), np.int64))
+        assert len(calls) == 2
+        with pytest.raises(ValueError, match="ln=None"):
+            ca(x, ctx, ln, mask=torch.ones(b, f, m, dtype=torch.bool))
+        with pytest.raises(ValueError, match="ln=None"):
+            ca(x, ctx[:, None].expand(b, f, m, 12), ln)
 
 
 def test_segment_gather_equals_masked_cross_attention(rng):
