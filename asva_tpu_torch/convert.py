@@ -20,7 +20,9 @@ their running statistics in flax's `batch_stats` collection, outside
 module's own value for exactly those keys and stays strict for all others.
 
 An optax AdamW state exported the same way loads into the port's optimizer
-(`load_exported_adam_state`), so a run can move between the two packages.
+(`load_exported_adam_state`), so a run can move between the two packages;
+`load_exported_sync_state` carries a whole classifier training state
+(parameters, BatchNorm running statistics, Adam moments, step) across.
 """
 from __future__ import annotations
 
@@ -76,3 +78,17 @@ def load_exported_adam_state(optimizer, mu: Dict[str, np.ndarray],
         raise KeyError(f"moments for non-trainable parameters: "
                        f"{sorted(extra)[:8]}")
     optimizer.load_state_dict(state)
+
+
+def load_exported_sync_state(state, variables: Dict[str, np.ndarray],
+                             mu: Dict[str, np.ndarray],
+                             nu: Dict[str, np.ndarray], count: int,
+                             step: int) -> None:
+    """Load asva_tpu's `SyncTrainState` into the port's
+    (`training.sync_trainer.SyncTrainState`): `variables` is the export of
+    {"params": ..., "batch_stats": ...} through `avsync_key_map`, `mu`/`nu`
+    the exports of the optax Adam moments of `params`, `count` the
+    optimizer's step count and `step` the trainer's."""
+    load_exported(state.classifier, variables)
+    load_exported_adam_state(state.optimizer, mu, nu, count)
+    state.step = int(step)

@@ -2,9 +2,13 @@
 
 Port of asva_tpu/models/avsync/classifier.py (:50-156), in the reference's
 torch key space (the one `avsync_key_map` maps from: `conv1.0` / `conv1.1`
-stems, `block1..4`, `conv2x..5x.{0,1}`, `fc.0/3/6`), inference only: the
-BatchNorms use their running statistics (momentum 0.1, eps 1e-5, torch
-defaults).
+stems, `block1..4`, `conv2x..5x.{0,1}`, `fc.0/3/6`).  In eval mode the
+BatchNorms use their running statistics; in training mode (`module.train()`,
+asva_tpu's `train=True` with mutable batch_stats) they normalise by the
+batch's statistics and update the running ones with momentum 0.1 and eps
+1e-5 — with the BIASED batch variance, as flax's BatchNorm does and as the
+steps are held against; torch's own BatchNorm would store the unbiased one
+(n / (n - 1) times larger).
 
   AudioConvNet: mel (b, 128, 204, 1) -> 5-stage 2D CNN
     (1->64 k7 s2) -> [64 s2] -> [128 s2] -> [256 s2] -> [512 s1], each stage
@@ -27,10 +31,40 @@ from torch import nn
 from torch.nn import functional as F
 
 
+class _BiasedVarianceBatchNorm:
+    """Training mode of torch's BatchNorm with flax's running-variance
+    update: the batch normalises itself (`F.batch_norm` without running
+    buffers), and the running statistics take the batch mean and the biased
+    batch variance, both reduced in fp32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            dims = [0] + list(range(2, x.dim()))
+            var, mean = torch.var_mean(x.detach().float(), dims, correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(
+                mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(
+                var.to(self.running_var.dtype), alpha=m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+class BatchNorm2d(_BiasedVarianceBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_BiasedVarianceBatchNorm, nn.BatchNorm3d):
+    pass
+
+
 def _conv_bn2d(cin: int, cout: int, kernel: int, stride, padding: int):
     return nn.Sequential(
         nn.Conv2d(cin, cout, kernel, stride, padding, bias=False),
-        nn.BatchNorm2d(cout))
+        BatchNorm2d(cout))
 
 
 class Basic2DBlock(nn.Module):
@@ -38,9 +72,9 @@ class Basic2DBlock(nn.Module):
                  stride: Tuple[int, int] = (1, 1)):
         super().__init__()
         self.conv1 = nn.Conv2d(in_planes, out_planes, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(out_planes)
+        self.bn1 = BatchNorm2d(out_planes)
         self.conv2 = nn.Conv2d(out_planes, out_planes, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(out_planes)
+        self.bn2 = BatchNorm2d(out_planes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(self.conv1(x)))
@@ -73,14 +107,14 @@ class BasicR2P1DBlock(nn.Module):
         p = out_planes
         self.spt_conv1 = nn.Conv3d(in_planes, p, (1, 3, 3), (1, sh, sw),
                                    (0, 1, 1), bias=False)
-        self.spt_bn1 = nn.BatchNorm3d(p)
+        self.spt_bn1 = BatchNorm3d(p)
         self.tmp_conv1 = nn.Conv3d(p, p, (3, 1, 1), (st, 1, 1), (1, 0, 0),
                                    bias=False)
-        self.tmp_bn1 = nn.BatchNorm3d(p)
+        self.tmp_bn1 = BatchNorm3d(p)
         self.spt_conv2 = nn.Conv3d(p, p, (1, 3, 3), 1, (0, 1, 1), bias=False)
-        self.spt_bn2 = nn.BatchNorm3d(p)
+        self.spt_bn2 = BatchNorm3d(p)
         self.tmp_conv2 = nn.Conv3d(p, p, (3, 1, 1), 1, (1, 0, 0), bias=False)
-        self.out_bn = nn.BatchNorm3d(p)
+        self.out_bn = BatchNorm3d(p)
         if in_planes != p or any(s != 1 for s in stride):
             self.res_conv = nn.Conv3d(in_planes, p, 1, stride, bias=False)
         else:
@@ -103,7 +137,7 @@ class VideoR2Plus1DNet(nn.Module):
         super().__init__()
         self.conv1 = nn.Sequential(
             nn.Conv3d(3, 64, (3, 7, 7), (1, 2, 2), (1, 3, 3), bias=False),
-            nn.BatchNorm3d(64))
+            BatchNorm3d(64))
         cin = 64
         for i, (ch, stride) in enumerate([(64, 1), (128, 2), (256, 2),
                                           (512, 2)]):
@@ -115,7 +149,11 @@ class VideoR2Plus1DNet(nn.Module):
     def forward(self, video: torch.Tensor) -> torch.Tensor:
         x = video.to(self.conv1[0].weight.dtype).permute(0, 4, 1, 2, 3)
         x = F.relu(self.conv1(x))
-        x = F.max_pool3d(x, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+        # the (1, 3, 3) pool per frame, as a 2D pool over (channel, frame)
+        # planes: a free view, and its backward has a fixed summation order
+        # where max_pool3d's adds with atomics
+        c, t = x.shape[1:3]
+        x = F.max_pool2d(x.flatten(1, 2), 3, 2, 1).unflatten(1, (c, t))
         x = self.conv5x(self.conv4x(self.conv3x(self.conv2x(x))))
         return x.mean(dim=(2, 3, 4))
 

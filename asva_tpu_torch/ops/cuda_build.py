@@ -22,9 +22,31 @@ import types
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
-SOURCES = ("gemm", "attn", "attn_bwd", "mix")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# One row per library: source name -> (headers it includes, {C entry point:
+# (argtypes, restype)}).  A new kernel is one row (or one entry of a row).
+KERNEL_TABLE = {
+    "gemm": ((), {
+        "asva_ln_gemm": ([_I] * 5 + [_VP] * 3 + [_F] + [_VP] * 5, _I),
+        "asva_error_string": ([_I], ctypes.c_char_p)}),
+    "attn": ((), {
+        "asva_mha_fwd": ([_I] * 7 + [_F] + [_VP] * 6, _I),
+        "asva_flat_attn": ([_I] * 6 + [_F] + [_VP] * 5, _I)}),
+    "attn_bwd": ((), {
+        "asva_mha_bwd": ([_I] * 7 + [_F] + [_VP] * 10, _I)}),
+    "mix": ((), {
+        "asva_ff_mix": ([_I] * 5 + [_VP] * 4 + [_I] * 3 + [_VP] * 3, _I)}),
+    "attn_variants": (("attn_tile.cuh",), {
+        "asva_ln_attn_variant": ([_I] * 9 + [_F] * 2 + [_VP] * 10, _I)}),
+    "attn_grouped": (("attn_tile.cuh",), {
+        "asva_mha_fwd_grouped": ([_I] * 8 + [_F] + [_VP] * 6, _I)}),
+    "attn_bwd_fused": (("attn_tile.cuh",), {
+        "asva_mha_bwd_fused": ([_I] * 9 + [_F] + [_VP] * 10, _I)}),
+}
+SOURCES = tuple(KERNEL_TABLE)
 
 
 def build_dir() -> str:
@@ -46,6 +68,9 @@ def nvcc_path():
 def _lib_path(name: str) -> str:
     with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    for header in KERNEL_TABLE[name][0]:
+        with open(os.path.join(CSRC, header), "rb") as f:
+            digest.update(f.read())
     return os.path.join(build_dir(), f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
@@ -82,33 +107,15 @@ def build() -> dict:
     return out
 
 
-_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
 @functools.cache
 def library() -> types.SimpleNamespace:
-    """The loaded kernel libraries (built first if missing)."""
+    """The loaded kernel libraries (built first if missing), one attribute
+    per source of KERNEL_TABLE."""
     paths = build()
-    gemm = ctypes.CDLL(paths["gemm"][0])
-    gemm.asva_ln_gemm.argtypes = [_I, _I, _I, _I, _I, _VP, _VP, _VP, _F, _VP,
-                                  _VP, _VP, _VP, _VP]
-    gemm.asva_ln_gemm.restype = _I
-    gemm.asva_error_string.argtypes = [_I]
-    gemm.asva_error_string.restype = ctypes.c_char_p
-    attn = ctypes.CDLL(paths["attn"][0])
-    attn.asva_mha_fwd.argtypes = [_I, _I, _I, _I, _I, _I, _I, _F, _VP, _VP,
-                                  _VP, _VP, _VP, _VP]
-    attn.asva_mha_fwd.restype = _I
-    attn.asva_flat_attn.argtypes = [_I, _I, _I, _I, _I, _I, _F, _VP, _VP, _VP,
-                                    _VP, _VP]
-    attn.asva_flat_attn.restype = _I
-    attn_bwd = ctypes.CDLL(paths["attn_bwd"][0])
-    attn_bwd.asva_mha_bwd.argtypes = [_I, _I, _I, _I, _I, _I, _I, _F] \
-        + [_VP] * 10
-    attn_bwd.asva_mha_bwd.restype = _I
-    mix = ctypes.CDLL(paths["mix"][0])
-    mix.asva_ff_mix.argtypes = [_I, _I, _I, _I, _I, _VP, _VP, _VP, _VP, _I, _I,
-                                _I, _VP, _VP, _VP]
-    mix.asva_ff_mix.restype = _I
-    return types.SimpleNamespace(gemm=gemm, attn=attn, attn_bwd=attn_bwd,
-                                 mix=mix)
+    libs = {}
+    for name, (_, entries) in KERNEL_TABLE.items():
+        lib = libs[name] = ctypes.CDLL(paths[name][0])
+        for entry, (argtypes, restype) in entries.items():
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = argtypes, restype
+    return types.SimpleNamespace(**libs)

@@ -52,7 +52,8 @@ from . import cuda_build
 from .norms import layer_norm_rows
 
 # per-wrapper count of kernel launches (CUDA path only)
-LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "B7": 0}
+LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "B7": 0,
+            "T1": 0, "T2F": 0, "T2B": 0}    # T*: the tools' kernels, variants.py
 
 _EPI_STORE, _EPI_GEGLU, _EPI_BIAS_RES = 0, 1, 2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}

@@ -184,14 +184,18 @@ def build_text_encoder(config: CLIPTextConfig = CLIPTextConfig(),
 
 def build_avsync_classifier(weights_dirs=None, device="cuda",
                             dtype=torch.float32, seed: int = 4,
-                            randomize_all: bool = False) -> AVSyncClassifier:
-    """The AVSync classifier in eval mode.  `weights_dirs`: {'audio_encoder':
-    dir, 'video_encoder': dir, 'head': dir} (the reference's per-module
-    exports, already in this key space) or the directory that holds the
-    three; a module whose weights are missing keeps its random init, with a
-    warning."""
+                            randomize_all: bool = False,
+                            train: bool = False) -> AVSyncClassifier:
+    """The AVSync classifier: in eval mode with frozen parameters in `dtype`,
+    or with `train=True` in training mode with fp32 parameters that require
+    grad (`dtype` is then the trainer's business: pass it as
+    `SyncContrastiveTrainer(compute_dtype=...)`).  `weights_dirs`:
+    {'audio_encoder': dir, 'video_encoder': dir, 'head': dir} (the
+    reference's per-module exports, already in this key space) or the
+    directory that holds the three; a module whose weights are missing keeps
+    its random init, with a warning."""
     model = _build(AVSyncClassifier, device, dtype, seed, randomize_all,
-                   gain=_RELU_GAIN)
+                   train=train, gain=_RELU_GAIN)
     if isinstance(weights_dirs, str):
         weights_dirs = {m: os.path.join(weights_dirs, m)
                         for m in ("audio_encoder", "video_encoder", "head")}

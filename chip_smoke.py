@@ -22,7 +22,17 @@ Phases, in order; any failure exits non-zero and prints no result:
                 229 audio tokens padded to 256 and unpadded, 77 text tokens
                 of 128) with its gradients and the same yardstick; B7
                 fused_ff_mix at FFInflatedConv's shapes on the column blocks
-                of one (C, 3C) weight, with its gradients;
+                of one (C, 3C) weight, with its gradients; the tools' kernels:
+                T1 ln_attn_variant, each of its ten names at the tool's shape
+                (G 2, M 12288, Sk 1024, C 320, 64 rows a block) against
+                ln_attn_variant_plain (v5_bf16exp in bf16: 0.05 absolute, the
+                JAX tool's tolerance for it), beside B1 on the same inputs;
+                T2f mha_fwd_grouped and T2b mha_bwd_ordered at the five
+                training shapes of tools/mha_phase_bench.py, every supported
+                group size and schedule (groups 1, 2 and b0, b1, b2 must
+                be), against mha_fwd_plain / mha_bwd_plain, T2f also bit for
+                bit against B4, T2b's dK/dV bit for bit across its orders,
+                beside B4 / B5 and the scaled_dot_product_attention yardstick;
   3. unet     — first the `ln=None` attention modules at full width
                 (FFSpatialAttention; CrossAttention on text and on unmasked
                 audio tokens; 32x32 and 16x16 levels) against
@@ -67,6 +77,25 @@ Phases, in order; any failure exits non-zero and prints no result:
                 bundle's features within 0.1 relative RMS of the fp32 one's
                 (some 50 to 90 conv layers deep, each rounding to bf16).
                 Generation there must launch B2 + B3 and never B6.
+  7. tools    — `asva_tpu_torch.tools.attn_experiments.main` and
+                `asva_tpu_torch.tools.mha_phase_bench.main` with a small
+                --n, as a user runs them: no parity row may fail, and T1,
+                T2F and T2B must have launched exactly as often as the
+                returned rows imply.
+  8. sync     — the judge's trainer: build_avsync_classifier(train=True) on
+                seeded weights, SyncContrastiveTrainer with tau and the
+                optimizer of configs/avsync/vggss_sync_contrast.yaml (read by
+                SyncJobConfig.from_yaml; AdamW lr 2e-4 after 100 warm-up
+                steps, wd 1e-2, clip 1.0), bf16 autocast over fp32
+                parameters, seeded random batches at the config's sizes: 21
+                clips an item of 12 224x224 frames and a 128x204 mel, batch 4
+                (or the largest that fits).  Four steps: finite losses within
+                a factor 2 of ln 21, running statistics and parameters
+                changed; eval_metrics afterwards leaves the state untouched
+                and ignores the order of the batch; a checkpoint round trip
+                restores parameters, buffers and optimizer state bit for
+                bit; an fp32 step at batch 1, repeated from the same state,
+                gives the same loss and parameters bit for bit.
 Launch counters are zeroed just before each path run and read just after.
 
 Tolerances (max |kernel - plain| over an output):
@@ -125,11 +154,21 @@ KERNELS = {
            ["asva_tpu_torch/csrc/attn.cu"]),
     "B7": ("asva_tpu/ops/pallas_fused.py:923", "pallas_fused._ff_mix_flat",
            ["asva_tpu_torch/csrc/mix.cu"]),
+    "T1": ("tools/attn_experiments.py:310", "attn_experiments.run_variant",
+           ["asva_tpu_torch/csrc/attn_variants.cu",
+            "asva_tpu_torch/csrc/attn_tile.cuh"]),
+    "T2F": ("tools/mha_phase_bench.py:82", "mha_phase_bench.fwd_flat",
+            ["asva_tpu_torch/csrc/attn_grouped.cu",
+             "asva_tpu_torch/csrc/attn_tile.cuh"]),
+    "T2B": ("tools/mha_phase_bench.py:185", "mha_phase_bench.bwd_flat",
+            ["asva_tpu_torch/csrc/attn_bwd_fused.cu",
+             "asva_tpu_torch/csrc/attn_tile.cuh"]),
 }
 # the case whose bf16 times go into the kernels line
 TIMED_CASE = {"B1": "attn1 32x32", "B2": "attn3 32x32", "B3": "ff 32x32",
               "B4": "attn1 32x32", "B5": "attn1 32x32", "B6": "attn1 32x32",
-              "B7": "mix 32x32"}
+              "B7": "mix 32x32", "T1": "v0 ", "T2F": "L0.attn1 g1 ",
+              "T2B": "L0.attn1 b0 "}
 # B1 and B3 also run on the training path: their bf16 times at its shapes
 TRAIN_TIMED_CASE = {"B1": "train attn1 32x32", "B3": "train ff 32x32"}
 
@@ -294,6 +333,158 @@ def flat_cases(gen, dtype):
     return cases
 
 
+T1_SHAPE = dict(g=2, m=12288, sk=1024, c=320)   # tools/attn_experiments.py
+T1_BLOCK_M = 64
+# tools/mha_phase_bench.py main: (tag, G, M, Sk, H*D, kv_len)
+T2_SHAPES = (("L0.attn1", 4, 12288, 1024, 320, None),
+             ("L0.audio", 48, 1024, 128, 320, 25),
+             ("L0.text", 4, 12288, 128, 320, 77),
+             ("L1.attn1", 4, 3072, 256, 640, None),
+             ("L2.attn1", 4, 768, 128, 1280, 64))
+
+
+def _bound(flops, nbytes, dname):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dname] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def tool_kernel_rows(gen, dtype):
+    """T1, T2f and T2b against their plain versions (and T2f against B4 bit
+    for bit) at the tools' shapes.  The bound of a row is that of the
+    production kernel for the same work: the function is the same."""
+    import torch
+    from asva_tpu_torch.ops import fused, variants
+    dname = str(dtype).split(".")[-1]
+    rows = []
+
+    def row(kernel, case, out, ref, ms_fn, plain_ms, flops, nbytes, prod_ms,
+            library_ms=None, tol=None, **extra):
+        err, rtol, scale = _compare(out, ref, dname)
+        if tol is not None:
+            rtol = tol
+        bound_ms, bound_by = _bound(flops, nbytes, dname)
+        r = dict(kernel=kernel, case=case, dtype=dname, max_abs_err=err,
+                 tol=rtol, max_abs_ref=scale, ok=err <= rtol and
+                 all(extra.get(k, True) for k in ("equals_b4", "dkdv_equal")),
+                 bytes=nbytes, operations=flops, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=library_ms,
+                 production_ms=prod_ms, plain_ms=plain_ms,
+                 ms=time_ms(ms_fn), **extra)
+        rows.append(r)
+        flags = "".join(f"  {k} {v}" for k, v in extra.items())
+        lib = f"  sdpa {library_ms:.3f} ms" if library_ms is not None else ""
+        log(f"  {kernel:3s} {dname:8s} {case:34s} err {err:.3e} (tol "
+            f"{rtol:.3e}){flags}  kernel {r['ms']:8.3f} ms  production "
+            f"{prod_ms:8.3f} ms  plain {plain_ms:8.3f} ms  bound "
+            f"{bound_ms:.4f} ms ({bound_by}){lib}  "
+            f"{'ok' if r['ok'] else 'FAIL'}")
+
+    with torch.no_grad():
+        # T1 at the tool's shape
+        g, m, sk, c = (T1_SHAPE[k] for k in ("g", "m", "sk", "c"))
+        args = ([_rand(gen, (g, m, c), dtype)] + _sub(gen, c, dtype)
+                + [_rand(gen, (g, sk, c), dtype),
+                   _rand(gen, (g, sk, c), dtype)])
+        b1_ms = time_ms(lambda: fused.fused_ln_attn(*args, 1e-5, HEADS))
+        plain_ms = {}
+        for name, (cls, _) in variants.VARIANTS.items():
+            out = variants.ln_attn_variant(name, *args, 1e-5, HEADS,
+                                           T1_BLOCK_M)
+            ref = variants.ln_attn_variant_plain(name, *args, 1e-5, HEADS)
+            torch.cuda.synchronize()
+            if cls not in plain_ms:     # one plain timing per class
+                plain_ms[cls] = time_ms(
+                    lambda: variants.ln_attn_variant_plain(
+                        name, *args, 1e-5, HEADS), 1, 3)
+            row("T1", f"{name} bm{T1_BLOCK_M}", out, ref,
+                lambda: variants.ln_attn_variant(name, *args, 1e-5, HEADS,
+                                                 T1_BLOCK_M),
+                plain_ms[cls], _attn_flops(g, m, sk, c),
+                _nbytes(*_tensors(args), out), b1_ms,
+                tol=0.05 if (name, dname) == ("v5_bf16exp", "bfloat16")
+                else None)
+            del out, ref
+        del args
+        torch.cuda.empty_cache()
+
+        # T2f and T2b at the five training shapes
+        for tag, g, m, sk, c, kv_len in T2_SHAPES:
+            d = c // HEADS
+            scale = 1.0 / math.sqrt(d)
+            q, k, v, do = (_rand(gen, shape, dtype) for shape in
+                           ((g, m, c), (g, sk, c), (g, sk, c), (g, m, c)))
+            rows_kv = sk if kv_len is None else kv_len
+            fwd = [q, k, v, HEADS, kv_len, scale]
+            o4, lse4 = fused.mha_fwd(*fwd)
+            ref = fused.mha_fwd_plain(*fwd)
+            dd = fused._head_rowsum(do, o4, HEADS)
+            bwd = [q, k, v, do, lse4, dd, HEADS, kv_len, scale]
+            ref_b = fused.mha_bwd_plain(*bwd)
+            b4_ms = time_ms(lambda: fused.mha_fwd(*fwd))
+            b5_ms = time_ms(lambda: fused.mha_bwd(*bwd))
+            plain_f = time_ms(lambda: fused.mha_fwd_plain(*fwd), 1, 3)
+            plain_b = time_ms(lambda: fused.mha_bwd_plain(*bwd), 1, 3)
+            lib_f = lib_b = None
+            if dname == "bfloat16":
+                # the yardstick sees the attended rows only
+                kk, vv = (t[:, :rows_kv].contiguous() for t in (k, v))
+                lib_f = sdpa_ms("B4", [q, kk, vv, scale])
+                with torch.enable_grad():
+                    lib_b = sdpa_ms("B5", [q.clone(), kk.clone(), vv.clone(),
+                                           do, scale])
+            ran = []
+            for group in (1, 2, 4, HEADS):
+                why = variants.t2f_supported(d, group)
+                if why:
+                    log(f"  T2F {dname:8s} {tag} g{group}: unsupported "
+                        f"({why})")
+                    rows.append(dict(kernel="T2F", case=f"{tag} g{group}",
+                                     dtype=dname, supported=False, why=why,
+                                     ok=True))
+                    continue
+                out = variants.mha_fwd_grouped(*fwd, None, group)
+                same = bool(torch.equal(out[0], o4)
+                            and torch.equal(out[1], lse4))
+                row("T2F", f"{tag} g{group} ", out, ref,
+                    lambda: variants.mha_fwd_grouped(*fwd, None, group),
+                    plain_f, 4 * g * m * rows_kv * c,
+                    _nbytes(q, out[0], out[1]) + 2 * g * rows_kv * c
+                    * q.element_size(), b4_ms, lib_f, equals_b4=same)
+                ran.append(group)
+            if ran[:2] != [1, 2]:
+                fail(f"T2f: groups 1 and 2 must be supported at {tag}")
+            ran, first = [], None
+            for var in ("b0", "b1", "b2", "b4", "b3"):
+                why = variants.t2b_supported(d, HEADS, var)
+                if why:
+                    log(f"  T2B {dname:8s} {tag} {var}: unsupported ({why})")
+                    rows.append(dict(kernel="T2B", case=f"{tag} {var}",
+                                     dtype=dname, supported=False, why=why,
+                                     ok=True))
+                    continue
+                out = variants.mha_bwd_ordered(*bwd, None, var)
+                first = first or out
+                same = bool(torch.equal(out[1], first[1])
+                            and torch.equal(out[2], first[2]))
+                row("T2B", f"{tag} {var} ", out, ref_b,
+                    lambda: variants.mha_bwd_ordered(*bwd, None, var),
+                    plain_b, 10 * g * m * rows_kv * c,
+                    _nbytes(q, do, lse4, dd, out[0], out[1], out[2])
+                    + 2 * g * rows_kv * c * q.element_size(), b5_ms, lib_b,
+                    dkdv_equal=same)
+                ran.append(var)
+            if ran[:3] != ["b0", "b1", "b2"]:
+                fail(f"T2b: b0, b1 and b2 must be supported at {tag}")
+            del q, k, v, do, o4, lse4, ref, ref_b, dd, first
+            torch.cuda.empty_cache()
+    return rows
+
+
 def _tensors(x):
     import torch
     if torch.is_tensor(x):
@@ -379,19 +570,16 @@ def phase_kernels(report):
                     ref = plain(*args)
                 torch.cuda.synchronize()
                 err, tol, scale = _compare(out, ref, dname)
-                nbytes = sum(t.numel() * t.element_size()
-                             for t in _tensors(args) + _tensors(out))
+                nbytes = _nbytes(*_tensors(args), *_tensors(out))
                 if rest and rest[0] is not None:
                     nbytes = rest[0]
                 del out, ref
-                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-                t_ops = flops / PEAK_FLOPS[dname] * 1e3
+                bound_ms, bound_by = _bound(flops, nbytes, dname)
                 row = dict(kernel=kernel, case=label, dtype=dname,
                            max_abs_err=err, tol=tol, max_abs_ref=scale,
                            ok=err <= tol, bytes=nbytes, operations=flops,
-                           bound_ms=max(t_bytes, t_ops),
-                           bound_by="bytes" if t_bytes >= t_ops
-                           else "operations", library_ms=None)
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=None)
                 with torch.no_grad():
                     row["ms"] = time_ms(lambda: wrapper(*args))
                     row["plain_ms"] = time_ms(lambda: plain(*args), 1, 3)
@@ -413,6 +601,7 @@ def phase_kernels(report):
                     f"ms ({row['bound_by']}){lib}  "
                     f"{'ok' if row['ok'] else 'FAIL'}")
             torch.cuda.empty_cache()
+        rows += tool_kernel_rows(gen, dtype)
     report["kernels"] = rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -1059,6 +1248,219 @@ def phase_judge(report):
     return counts
 
 
+# ------------------------------------------------------------- phase 7 ---
+
+def phase_tools(report):
+    """Both kernel tools through their `main`, as `python3 -m
+    asva_tpu_torch.tools.<name> --n 3` runs them.  Every call of a tool's
+    timer is 2 warm-up launches and n timed ones."""
+    from asva_tpu_torch.tools import attn_experiments, mha_phase_bench
+    n = 3
+    reset_counts()
+    t0 = time.perf_counter()
+    attn_rows = attn_experiments.main(["--n", str(n)], device="cuda")
+    mha_rows = mha_phase_bench.main(["--n", str(n)], device="cuda")
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    per_timing = n + 2
+
+    def timed(rows, kind, key):
+        return sum(per_timing for r in rows if r["kind"] == kind
+                   and r.get(key) is not None and r.get("supported", True))
+    expect = {
+        "T1": sum(r["kind"] == "parity" for r in attn_rows)
+        + timed(attn_rows, "time", "block_m"),
+        "T2F": sum(r["kind"] == "parity_fwd" and r["supported"]
+                   for r in mha_rows) + timed(mha_rows, "time_fwd", "group"),
+        "T2B": sum(r["kind"] == "parity_bwd" and r["supported"]
+                   for r in mha_rows) + timed(mha_rows, "time_bwd", "variant")}
+    failed = [r for r in attn_rows + mha_rows if not r.get("ok", True)]
+    got = {k: counts[k] for k in expect}
+    report["tools"] = dict(seconds=seconds, n=n, launches=counts,
+                           expected=expect, attn_experiments=attn_rows,
+                           mha_phase_bench=mha_rows,
+                           failed=[str(r) for r in failed])
+    log(f"  tools: {seconds:.1f} s; launches {got}, the rows imply {expect}; "
+        f"{len(failed)} parity rows failed")
+    if failed or got != expect or min(got.values()) <= 0:
+        fail(f"tools: launches {got} vs {expect}; failed rows {failed}")
+    return got
+
+
+# ------------------------------------------------------------- phase 8 ---
+
+SYNC_YAML = "configs/avsync/vggss_sync_contrast.yaml"
+
+
+def build_sync_trainer(cfg, compute_dtype, batch_size, seed):
+    """(trainer, state, batch): the judge's trainer at the config's sizes on
+    the card, seeded weights and a seeded random batch."""
+    import torch
+    from asva_tpu_torch.runtime import build_avsync_classifier
+    from asva_tpu_torch.training import (SyncContrastiveTrainer,
+                                         SyncTrainState, build_optimizer)
+    clf = build_avsync_classifier(device="cuda", seed=seed, train=True)
+    o = cfg.optim
+    optimizer = build_optimizer(
+        clf, o.learning_rate, max_grad_norm=o.max_grad_norm,
+        adam_beta1=o.adam_beta1, adam_beta2=o.adam_beta2,
+        adam_eps=o.adam_epsilon, weight_decay=o.adam_weight_decay,
+        warmup_steps=(o.lr_warmup_steps
+                      if o.lr_scheduler == "constant_with_warmup" else 0))
+    trainer = SyncContrastiveTrainer(clf, tau=cfg.tau,
+                                     compute_dtype=compute_dtype)
+    d = cfg.train_dataset
+    gen = _gen(seed + 1)
+    k, f, hw = d.num_clips, d.video_num_frames, d.image_size
+    batch = {"mels": torch.randn((batch_size, k, 128, 204, 1), generator=gen,
+                                 device="cuda"),
+             "videos": torch.randn((batch_size, k, f, hw, hw, 3),
+                                   generator=gen, device="cuda")}
+    return trainer, SyncTrainState(0, clf, optimizer), batch
+
+
+def phase_sync(report):
+    import torch
+    from asva_tpu_torch.config import SyncJobConfig
+    from asva_tpu_torch.training.checkpoint import CheckpointManager
+    cfg = SyncJobConfig.from_yaml(os.path.join(ROOT, SYNC_YAML))
+    k = cfg.train_dataset.num_clips
+    out = {"config": SYNC_YAML, "num_clips": k, "tau": cfg.tau,
+           "learning_rate": cfg.optim.learning_rate,
+           "warmup_steps": cfg.optim.lr_warmup_steps}
+    n_steps = 4
+
+    def clone_state(clf):
+        return {n: t.detach().clone() for n, t in clf.state_dict().items()}
+
+    for batch_size in (cfg.batch_size, 2, 1):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            trainer, state, batch = build_sync_trainer(cfg, torch.bfloat16,
+                                                       batch_size, 700)
+            before = clone_state(state.classifier)
+            metrics, seconds = [], []
+            for _ in range(n_steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = trainer.train_step(state, batch)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                metrics.append({key: v.item() for key, v in m.items()})
+            break
+        except torch.cuda.OutOfMemoryError:
+            log(f"  sync: batch {batch_size} does not fit in device memory")
+            trainer = state = batch = before = None
+    else:
+        fail("sync: not even batch 1 fits in device memory")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [(m["av_loss"] + m["va_loss"]) / 2 for m in metrics]
+    after = state.classifier.state_dict()
+    stats_moved = all(not torch.equal(after[n], before[n]) for n in after
+                      if "running_" in n)
+    # the first warm-up step has lr 0 (the schedule is read before the
+    # step): parameters move from the second step on
+    params_moved = all(not torch.equal(p, before[n])
+                       for n, p in state.classifier.named_parameters())
+    near = all(math.isfinite(x) and 0.5 * math.log(k) <= x <= 2 * math.log(k)
+               for x in losses)
+    out.update(batch_size=batch_size, clips_per_step=batch_size * k,
+               seconds_per_step=seconds, max_memory_allocated=peak,
+               metrics=metrics, losses=losses, ln_k=math.log(k),
+               running_statistics_changed=stats_moved,
+               parameters_changed=params_moved)
+    log(f"  sync: batch {batch_size} ({batch_size * k} clips a step); seconds "
+        f"per step {[round(x, 3) for x in seconds]}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; losses {losses} (ln {k} = "
+        f"{math.log(k):.3f}); running statistics changed {stats_moved}; "
+        f"parameters changed {params_moved}")
+    if not (near and stats_moved and params_moved and state.step == n_steps
+            and state.optimizer.count == n_steps):
+        fail(f"sync trainer steps: {out}")
+
+    # eval_metrics: no state change, no dependence on the batch's order
+    snapshot = clone_state(state.classifier)
+    ev = {key: v.item() for key, v in trainer.eval_metrics(batch).items()}
+    perm = torch.randperm(batch_size, generator=torch.Generator().manual_seed(
+        1)).cuda()
+    if batch_size > 1 and perm.tolist() == list(range(batch_size)):
+        perm = perm.flip(0)
+    ev_perm = {key: v.item() for key, v in trainer.eval_metrics(
+        {name: t[perm] for name, t in batch.items()}).items()}
+    untouched = all(torch.equal(v, snapshot[n]) for n, v in
+                    state.classifier.state_dict().items())
+    # the per-item rows are the same up to the convolutions' batch position;
+    # losses within 1e-3 relative, accuracies within one row of b * k
+    same = all(abs(ev[key] - ev_perm[key]) <= (
+        1e-3 * max(1.0, abs(ev[key])) if key.endswith("loss")
+        else 1.0 / (batch_size * k) + 1e-6) for key in ev)
+    out["eval"] = dict(metrics=ev, permuted=ev_perm, state_untouched=untouched,
+                       order_invariant=same,
+                       mode_restored=state.classifier.training)
+    log(f"  sync: eval_metrics {ev}; permuted batch {ev_perm}; state "
+        f"untouched {untouched}")
+    if not (untouched and same and state.classifier.training
+            and all(math.isfinite(x) for x in ev.values())):
+        fail(f"sync eval_metrics: {out['eval']}")
+
+    # checkpoint round trip: parameters, buffers, optimizer state, counters
+    want = state.state_dict()
+    want = dict(step=want["step"], classifier=clone_state(state.classifier),
+                mu={n: t.clone() for n, t in want["optimizer"]["mu"].items()},
+                nu={n: t.clone() for n, t in want["optimizer"]["nu"].items()})
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        saved = CheckpointManager(tmp, n_steps).save(state.step,
+                                                     state.state_dict())
+        with torch.no_grad():
+            for t in state.classifier.state_dict().values():
+                t.zero_()
+        state.step, state.optimizer.count = 0, 0
+        step, restored = CheckpointManager(tmp).restore_latest("cuda")
+        state.load_state_dict(restored)
+        del restored
+        got = state.state_dict()
+        exact = (all(torch.equal(v, want["classifier"][n])
+                     for n, v in got["classifier"].items())
+                 and all(torch.equal(v, want[kind][n]) for kind in ("mu", "nu")
+                         for n, v in got["optimizer"][kind].items())
+                 and got["step"] == want["step"] == step
+                 and state.optimizer.count == n_steps)
+        out["checkpoint"] = dict(saved=saved, step=step, bit_exact=exact,
+                                 seconds=time.perf_counter() - t0)
+    log(f"  sync: checkpoint {out['checkpoint']}")
+    if not (saved and exact):
+        fail(f"sync checkpoint round trip: {out['checkpoint']}")
+    del trainer, state, batch, before, snapshot, want, got
+    torch.cuda.empty_cache()
+
+    # fp32 at batch 1, twice from the same seed: the same loss and the same
+    # parameters, bit for bit
+    runs = []
+    cudnn_was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # no atomics in cuDNN's wgrad
+    for _ in range(2):
+        trainer, state, batch = build_sync_trainer(cfg, torch.float32, 1, 710)
+        ms = [trainer.train_step(state, batch) for _ in range(3)]
+        runs.append(([m["av_loss"].item() for m in ms],
+                     clone_state(state.classifier)))
+        del trainer, state, batch
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = cudnn_was
+    deterministic = (runs[0][0] == runs[1][0]
+                     and all(torch.equal(v, runs[1][1][n])
+                             for n, v in runs[0][1].items()))
+    out["fp32_batch1"] = dict(av_losses=runs[0][0], repeated=runs[1][0],
+                              deterministic=deterministic)
+    log(f"  sync: fp32 batch 1 twice: {out['fp32_batch1']}")
+    report["sync"] = out
+    if not (deterministic and all(math.isfinite(x) for x in runs[0][0])):
+        fail(f"sync fp32 determinism: {out['fp32_batch1']}")
+    del runs
+    torch.cuda.empty_cache()
+
+
 def _kernel_kind(name: str) -> str:
     """Coarse family of a device kernel, from its name."""
     if "(anonymous namespace)::gemm_" in name:
@@ -1231,6 +1633,10 @@ def main() -> int:
     judge_counts = phase_judge(report)
     if pipe_counts["B6"] or train_counts["B6"] or judge_counts["B6"]:
         fail("generation or training launched B6: they go through B1-B5")
+    log("phase 7: tools")
+    tool_counts = phase_tools(report)
+    log("phase 8: sync trainer")
+    phase_sync(report)
 
     # launches on each driven path: B1 and B3 run in generation and training
     by_path = {
@@ -1244,10 +1650,14 @@ def main() -> int:
         "B4": {"train, 4 steps": train_counts["B4"]},
         "B5": {"train, 4 steps": train_counts["B5"]},
         "B6": {"ln=None attention modules": b6_count},
-        "B7": {"fused_ff_mix on FFInflatedConv's conv": b7_count}}
+        "B7": {"fused_ff_mix on FFInflatedConv's conv": b7_count},
+        "T1": {"tools.attn_experiments main": tool_counts["T1"]},
+        "T2F": {"tools.mha_phase_bench main": tool_counts["T2F"]},
+        "T2B": {"tools.mha_phase_bench main": tool_counts["T2B"]}}
     kernels = []
     for name, (replaces, tpu, sources) in KERNELS.items():
-        mine = [r for r in rows if r["kernel"] == name]
+        mine = [r for r in rows if r["kernel"] == name
+                and r.get("supported", True)]
 
         def timed(prefix):
             return next(r for r in mine if r["dtype"] == "bfloat16"
@@ -1261,6 +1671,10 @@ def main() -> int:
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
             timed_case=f"{main['case']} bf16")
+        if "production_ms" in main:      # the tools' kernels: every variant
+            entry["production_ms"] = main["production_ms"]
+            entry["ms_by_case"] = {r["case"].strip(): r["ms"] for r in mine
+                                   if r["dtype"] == "bfloat16"}
         if name in TRAIN_TIMED_CASE:
             train = timed(TRAIN_TIMED_CASE[name])
             entry["train_shape"] = dict(

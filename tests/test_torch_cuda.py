@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (B1-B7) against their plain versions, on a card.
+"""The port's CUDA kernels (B1-B7 and the tools' T1, T2f, T2b) against their
+plain versions, on a card.
 
 Marked `cuda`: each test skips without a CUDA device.  This file imports no
 JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
@@ -9,7 +10,10 @@ JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
 the kernels against their plain versions at every SD1.5 level; this file
 covers what that run does not reach: kv_len < Sk masking, ragged token
 counts that are not tile multiples, head dims 40/80/160, and the rule that a
-wrapper given an input that requires grad returns a tensor with a grad_fn.
+wrapper given an input that requires grad returns a tensor with a grad_fn;
+for the tools' kernels every variant name, group size and schedule, the
+rule that excludes an instantiation, T2f's bit equality with B4 and the
+reproducible dK/dV of T2b.
 
 Tolerances: fp32 1e-4 times max(1, max|plain|) (fp32 products; summation
 order and the online softmax differ); bf16 2**-6 times max|plain| (two bf16
@@ -370,3 +374,116 @@ def test_b7_frame0_clamp_on_card(dev):
     assert torch.allclose(head, y[:, :1].expand_as(y), atol=1e-6)
     assert torch.allclose(prev, torch.cat([y[:, :1], y[:, :-1]], 1), atol=1e-6)
     assert torch.allclose(curr, y, atol=1e-6)
+
+
+# ------------------------------------------------ the kernel tools' kernels
+
+def _t1_args(gen, g, m, sk, c, dtype):
+    return ([_r(gen, (g, m, c), dtype)] + _sub(gen, c, dtype)
+            + [_r(gen, (g, sk, c), dtype), _r(gen, (g, sk, c), dtype)])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("c,heads,m,sk,block_m", [
+    (320, 8, 200, 150, 128),   # the tool's width, ragged M and Sk
+    (64, 2, 64, 64, 64),       # head dim 32, exact tiles
+    (192, 4, 70, 200, 64),     # head dim 48
+])
+@pytest.mark.parametrize("name", ["v0", "v1_phased", "v2_postnorm", "v3_both",
+                                  "v4_mmfloor", "v5_bf16exp", "v6_stacksm",
+                                  "v7_exp2", "v8_pipe", "v9_mxusum"])
+def test_t1_on_card(dev, dtype, name, c, heads, m, sk, block_m):
+    """T1 against its plain version, every name.  v5_bf16exp in bf16: 0.05
+    absolute, the tolerance tools/attn_experiments.py gives it."""
+    from asva_tpu_torch.ops import variants
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    args = _t1_args(gen, 2, m, sk, c, dtype)
+    before = fused.LAUNCHES["T1"]
+    got = variants.ln_attn_variant(name, *args, 1e-5, heads, block_m)
+    assert fused.LAUNCHES["T1"] == before + 1
+    want = variants.ln_attn_variant_plain(name, *args, 1e-5, heads)
+    if name == "v5_bf16exp" and dtype == torch.bfloat16:
+        assert (got.float() - want.float()).abs().max().item() <= 0.05
+    else:
+        _check(got, want, dtype)
+
+
+def test_t1_unsupported_geometry_raises(dev):
+    from asva_tpu_torch.ops import variants
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    args = _t1_args(gen, 1, 64, 64, 640, torch.bfloat16)
+    with pytest.raises(ValueError, match="T1 takes"):
+        variants.ln_attn_variant("v0", *args, 1e-5, 8, 64)
+    args = _t1_args(gen, 1, 64, 64, 320, torch.bfloat16)
+    with pytest.raises(ValueError, match="block_m"):
+        variants.ln_attn_variant("v0", *args, 1e-5, 8, 96)
+
+
+T2_SHAPES = [(2, 130, 128, 320, 8, 77),    # d = 40, masked past kv_len
+             (3, 100, 25, 640, 8, None),   # d = 80, ragged M and Sk
+             (2, 70, 200, 1280, 8, 150),   # d = 160, two K/V tiles, masked
+             (2, 64, 128, 320, 8, 25)]     # a K/V tile of masked keys only
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g,m,sk,c,heads,kv_len", T2_SHAPES)
+def test_t2f_on_card(dev, dtype, g, m, sk, c, heads, kv_len):
+    """T2f: every supported group size within tolerance of the plain version
+    and bit-equal to B4 (o and lse); groups 1 and 2 are supported at every
+    head dim."""
+    from asva_tpu_torch.ops import variants
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (_r(gen, s, dtype) for s in ((g, m, c), (g, sk, c), (g, sk, c)))
+    scale = 1.0 / math.sqrt(c // heads)
+    o4, lse4 = fused.mha_fwd(q, k, v, heads, kv_len, scale)
+    o_p, lse_p = fused.mha_fwd_plain(q, k, v, heads, kv_len, scale)
+    ran = []
+    for group in (1, 2, 4, heads):
+        if variants.t2f_supported(c // heads, group):
+            with pytest.raises(ValueError):
+                variants.mha_fwd_grouped(q, k, v, heads, kv_len, scale, None,
+                                         group)
+            continue
+        before = fused.LAUNCHES["T2F"]
+        o, lse = variants.mha_fwd_grouped(q, k, v, heads, kv_len, scale, None,
+                                          group)
+        assert fused.LAUNCHES["T2F"] == before + 1
+        _check(o, o_p, dtype)
+        _check(lse, lse_p, torch.float32)
+        assert torch.equal(o, o4) and torch.equal(lse, lse4), group
+        ran.append(group)
+    assert ran[:2] == [1, 2]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("g,m,sk,c,heads,kv_len", T2_SHAPES)
+def test_t2b_on_card(dev, dtype, g, m, sk, c, heads, kv_len):
+    """T2b: every supported variant within tolerance of the plain version;
+    dK and dV (summed in a fixed order) bit-equal across the variants; b0,
+    b1 and b2 are supported at every head dim."""
+    from asva_tpu_torch.ops import variants
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v, do = (_r(gen, s, dtype) for s in
+                   ((g, m, c), (g, sk, c), (g, sk, c), (g, m, c)))
+    scale = 1.0 / math.sqrt(c // heads)
+    o, lse = fused.mha_fwd(q, k, v, heads, kv_len, scale)
+    dd = fused._head_rowsum(do, o, heads)
+    want = fused.mha_bwd_plain(q, k, v, do, lse, dd, heads, kv_len, scale)
+    ran, first = [], None
+    for variant in ("b0", "b1", "b2", "b4", "b3"):
+        if variants.t2b_supported(c // heads, heads, variant):
+            with pytest.raises(ValueError):
+                variants.mha_bwd_ordered(q, k, v, do, lse, dd, heads, kv_len,
+                                         scale, None, variant)
+            continue
+        before = fused.LAUNCHES["T2B"]
+        got = variants.mha_bwd_ordered(q, k, v, do, lse, dd, heads, kv_len,
+                                       scale, None, variant)
+        assert fused.LAUNCHES["T2B"] == before + 1
+        for a, b in zip(got, want):
+            _check(a, b, dtype)
+        if first is None:
+            first = got
+        assert torch.equal(got[1], first[1]) and torch.equal(got[2], first[2])
+        ran.append(variant)
+    assert ran[:3] == ["b0", "b1", "b2"]

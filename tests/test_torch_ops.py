@@ -76,7 +76,45 @@ def test_port_imports_no_jax():
              "models/avsync/classifier.py", "models/evalnets/i3d.py",
              "models/evalnets/inception_v3.py", "models/clip_text.py",
              "models/clip_bpe.py", "models/imagebind_extra.py",
-             "eval/metrics.py", "eval/frechet.py", "eval/harness.py")} <= seen
+             "eval/metrics.py", "eval/frechet.py", "eval/harness.py",
+             "tools/attn_experiments.py", "tools/mha_phase_bench.py",
+             "training/sync_trainer.py", "config.py", "observability.py",
+             "utils.py", "ops/resample.py", "ops/variants.py",
+             "data/multipair.py")} <= seen
+    # chip_smoke.py and the port also stay clear of the repo's tools/ (they
+    # import JAX at their top)
+    tools = re.compile(r"^\s*(import|from)\s+tools(\.|\s|$)", re.M)
+    root = os.path.dirname(PKG)
+    paths = [os.path.join(PKG, rel) for rel in seen]
+    paths.append(os.path.join(root, "chip_smoke.py"))
+    for path in paths:
+        with open(path) as f:
+            text = f.read()
+        assert not tools.search(text), path
+        if path.endswith("chip_smoke.py"):
+            assert not pat.search(text), path
+
+
+def test_kernel_table_names_every_source_once():
+    """cuda_build keeps one table: every source of csrc/ is a row, every
+    row's headers exist, every entry point is declared extern "C" in its
+    source with as many parameters as the table has argtypes."""
+    from asva_tpu_torch.ops import cuda_build
+    csrc = cuda_build.CSRC
+    on_disk = {n[:-3] for n in os.listdir(csrc) if n.endswith(".cu")}
+    assert set(cuda_build.SOURCES) == on_disk == set(cuda_build.KERNEL_TABLE)
+    for name, (headers, entries) in cuda_build.KERNEL_TABLE.items():
+        with open(os.path.join(csrc, f"{name}.cu")) as f:
+            text = f.read()
+        for header in headers:
+            assert os.path.isfile(os.path.join(csrc, header))
+            assert f'#include "{header}"' in text
+        for entry, (argtypes, _) in entries.items():
+            m = re.search(r'extern "C" [\w\s\*]+?\b%s\(([^)]*)\)' % entry,
+                          text)
+            assert m, (name, entry)
+            assert len(m.group(1).split(",")) == len(argtypes), entry
+    assert os.path.basename(cuda_build._lib_path("gemm")).startswith("libgemm_")
 
 
 # ---------------------------------------------------------------- norms ---
