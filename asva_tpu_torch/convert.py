@@ -35,17 +35,17 @@ from torch import nn
 
 def load_exported(module: nn.Module, state: Dict[str, np.ndarray],
                   strict: bool = True) -> nn.Module:
-    """Load a {torch key: numpy array} state dict into `module`, casting to
-    each parameter's dtype and device.  Returns the module."""
+    """Load a {torch key: numpy array or tensor} state dict into `module`,
+    casting to each parameter's dtype and device.  Returns the module."""
     own = module.state_dict()
     tensors = {}
     for key, value in state.items():
-        arr = np.asarray(value)
+        t = (value if torch.is_tensor(value)
+             else torch.from_numpy(np.array(value)))  # a writable copy
         target = own.get(key)
-        if (target is not None and target.dim() == 4 and arr.ndim == 2
+        if (target is not None and target.dim() == 4 and t.dim() == 2
                 and tuple(target.shape[2:]) == (1, 1)):
-            arr = arr[:, :, None, None]
-        t = torch.from_numpy(np.array(arr))  # a writable, contiguous copy
+            t = t[:, :, None, None]
         if target is not None:
             t = t.to(dtype=target.dtype, device=target.device)
         tensors[key] = t

@@ -41,48 +41,47 @@
 // normalise" where the Pallas body normalises first (pallas_attn.py:38).
 // K/V are never padded: rows >= kv_len are neither read nor needed.
 //
-// bf16: mma.sync m16n8k16, 4 warps x 16 query rows; P goes from the QK^T
-// accumulator registers straight into the A fragments of the PV product.
-// fp32: a plain FMA path, 32 query rows x 4 threads each.
+// bf16 (B4, K-attn, B6): two warpgroups a block, each owning 64 query rows
+// of one head; both products on wgmma (m64n64k16 for S = Q K^T with Q and K
+// in shared memory, m64nDPk16 for O += P V with P from the S accumulator
+// registers and V read MN-major through its descriptor, so no operand is
+// transposed by hand); K/V tiles stream through a 3-stage cp.async ring, so
+// the next tile's copy overlaps this tile's products; S of the next tile is
+// issued before P V of this one, so the softmax of one overlaps the other's
+// product; the softmax runs in base 2 with scale * log2(e) folded into one
+// FMA before each exp2, and only the last K/V tile is masked (to -inf: the
+// same zero weight as -1e9).  lse is stored in natural log.  Shared-memory
+// tiles use the unswizzled core-matrix layout of hopper.cuh: a head tile of
+// 40 or 80 columns pads to 48 or 80 there with zero-filled copies, never
+// reading the next head's columns.
+// fp32: a plain FMA path, 32 query rows x 4 threads each (the check path).
 //
-// What bounds it on the H100: at d = 40 the QK^T and PV products are short
-// (K-dim 48 after padding), so the fp32 softmax (exp, max, rescale per key)
-// costs as much as the MMA: the kernel is bound by the softmax, not the
-// tensor cores.  This simple design does nothing about that yet (no exp2
-// folding of the scale, no packed-head tiles, V fragments read with 16-bit
-// shared loads instead of ldmatrix.trans).
+// What bounds it on the H100: at d = 40 the contraction of Q K^T is 48
+// deep, so each 64 x 64 tile costs 3 wgmma steps for S and 4 for P V
+// against 4096 exp2 and the row max/sum shuffles: the kernel is bound by
+// the softmax's issue slots and the copy latency, not the tensor cores.
+// The design keeps the softmax to one FMA + exp2 per element, overlaps it
+// with the products of the neighbouring tile inside each warpgroup and with
+// other blocks' products (48 KB of shared memory a block at d = 40), and
+// keeps copies in flight across each tile.  Two warpgroups share each K/V
+// tile, halving its copies; one warpgroup a block (twice the blocks) and a
+// warp-specialised form (a producer warp filling the ring) measured slower
+// (PERF.md).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+#include "wgmma.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
 constexpr float MASK = -1e9f;
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t pack_b(bf16 lo, bf16 hi) {
-  __nv_bfloat162 p;
-  p.x = lo;
-  p.y = hi;
-  return *reinterpret_cast<uint32_t*>(&p);
-}
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -96,160 +95,189 @@ __device__ __forceinline__ float quad_sum(float v) {
 
 // ---------------------------------------------------------------- bf16 ---
 
-constexpr int BQ16 = 64, BKV16 = 64;
+// NWG warpgroups (128 threads each) per block own 64 query rows each of one
+// head and share the K/V tiles.  Q is copied to shared memory once; K/V
+// tiles of 64 rows stream through a STAGES-deep ring filled by cp.async.
+// Per tile t, each warpgroup: S = Q K^T (wgmma, both operands from shared
+// memory, K-major), the online softmax in base 2 on the accumulator
+// registers, O += P V (wgmma, P from registers as the A fragment, V
+// MN-major from shared memory).  The products of neighbouring tiles
+// overlap the softmax: O is rescaled, S of tile t + 1 and P V of tile t are
+// issued, and the softmax of tile t + 1 runs while P V of tile t is in
+// flight.  In iteration t the ring holds tile t (V in use), tile t + 1 (K in
+// use) and the copy of tile t + STAGES - 1, written into the stage of tile
+// t - 1, which every warp has finished with by the barrier that opens the
+// iteration.
+constexpr int STAGES = 3;  // K/V tiles in the cp.async ring
 
-// rows [row0, row0 + 64) x cols [0, DP) of a (rows, ld) head slice into
-// dst[64][DP + 8]; rows >= nvalid and cols >= D are zero.
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src,
-                                          int row0, int nvalid, int ld, int D) {
-  constexpr int CPR = DP / 8, LD = DP + 8;
-  for (int c = threadIdx.x; c < 64 * CPR; c += blockDim.x) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < nvalid && col < D)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + col);
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = v;
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(128)
+template <int DP, int NWG>
+__global__ void __launch_bounds__(128 * NWG)
 attn_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o,
                  float* __restrict__ lse, int M, int Sk, int kv_len, int H,
                  int D, float scale) {
-  constexpr int LD = DP + 8, KC = DP / 16, DT = DP / 8;
+  constexpr int TILE = 64 * DP * 2;  // bytes of one 64-row tile
+  constexpr int NT = 128 * NWG;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + BQ16 * LD;
-  bf16* Vs = Ks + BKV16 * LD;
+  const uint32_t sq = hop::smem_u32(smem);  // NWG query tiles, then the ring
+  auto sk = [&](int t) { return sq + TILE * (NWG + 2 * (t % STAGES)); };
+  auto sv = [&](int t) { return sq + TILE * (NWG + 1 + 2 * (t % STAGES)); };
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = blockIdx.x * BQ16, h = blockIdx.y, grp = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * 64 * NWG, h = blockIdx.y, grp = blockIdx.z;
   const int C = H * D;
   const bf16* qg = q + (size_t)grp * M * C + h * D;
   const bf16* kg = k + (size_t)grp * Sk * C + h * D;
   const bf16* vg = v + (size_t)grp * Sk * C + h * D;
+  const int ntiles = (kv_len + 63) / 64;
+  const uint32_t sqw = sq + wg * TILE;  // this warpgroup's query rows
+  auto load_kv = [&](int t) {
+    hop::load_tile_async<DP, NT>(sk(t), kg, t * 64, kv_len, C, D, tid);
+    hop::load_tile_async<DP, NT>(sv(t), vg, t * 64, kv_len, C, D, tid);
+  };
 
-  load_tile<DP>(Qs, qg, q0, M, C, D);
-  __syncthreads();
-  uint32_t qf[KC][4];
-  {
-    const int r = warp * 16 + g;
+  hop::load_tile_async<DP, NT, 64 * NWG>(sq, qg, q0, M, C, D, tid);
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      const int c = kc * 16 + t4 * 2;
-      qf[kc][0] = *reinterpret_cast<const uint32_t*>(&Qs[r * LD + c]);
-      qf[kc][1] = *reinterpret_cast<const uint32_t*>(&Qs[(r + 8) * LD + c]);
-      qf[kc][2] = *reinterpret_cast<const uint32_t*>(&Qs[r * LD + c + 8]);
-      qf[kc][3] = *reinterpret_cast<const uint32_t*>(&Qs[(r + 8) * LD + c + 8]);
-    }
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < ntiles) load_kv(t);
+    hop::cp_commit();
   }
+  hop::cp_wait<STAGES - 2>();  // Q and tile 0 (this thread's copies)
+  hop::fence_async_smem();
+  __syncthreads();             // ... every thread's
 
-  float oacc[DT][4];
+  float s[32];
+  auto qk = [&](int t) {  // issue S = Q K_t^T into s
+    hop::wg_fence();
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
+    for (int kc = 0; kc < DP / 16; ++kc)
+      Wgmma<64>::ss(s, hop::desc_kmajor<DP>(sqw + kc * 256),
+                    hop::desc_kmajor<DP>(sk(t) + kc * 256), kc > 0);
+    hop::wg_commit();
+  };
+  // running max (base-2 units of the scaled logits), this thread's share of
+  // the row sum and the factor that rescales O, for rows g and g + 8 of the
+  // warp's 16
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, al0, al1;
+  const float sl2e = scale * hop::LOG2E;
+  auto softmax = [&](int t) {  // s (tile t) -> unnormalised P, in place
+    if ((t + 1) * 64 > kv_len) {  // the last tile: columns >= kv_len
 #pragma unroll
-    for (int e = 0; e < 4; ++e) oacc[dt][e] = 0.f;
-  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
-
-  const int ntiles = (kv_len + BKV16 - 1) / BKV16;
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * BKV16;
-    __syncthreads();  // the previous tile's reads are done
-    load_tile<DP>(Ks, kg, k0, kv_len, C, D);
-    load_tile<DP>(Vs, vg, k0, kv_len, C, D);
-    __syncthreads();
-
-    float s[BKV16 / 8][4];
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int nt = 0; nt < BKV16 / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-      const bf16* kr = Ks + (nt * 8 + g) * LD + t4 * 2;
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kc * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + kc * 16 + 8);
-        mma_bf16(s[nt], qf[kc], b0, b1);
-      }
+        for (int e = 0; e < 4; ++e)
+          if (t * 64 + 8 * j + 2 * t4 + (e & 1) >= kv_len)
+            s[4 * j + e] = -INFINITY;
     }
-
-    float tm0 = -INFINITY, tm1 = -INFINITY;
+    float x0 = -INFINITY, x1 = -INFINITY;
 #pragma unroll
-    for (int nt = 0; nt < BKV16 / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-        const float val = col < kv_len ? s[nt][e] * scale : MASK;
-        s[nt][e] = val;
-        if (e < 2) tm0 = fmaxf(tm0, val);
-        else tm1 = fmaxf(tm1, val);
-      }
-    const float mn0 = fmaxf(mrow[0], quad_max(tm0));
-    const float mn1 = fmaxf(mrow[1], quad_max(tm1));
-    const float al0 = expf(mrow[0] - mn0), al1 = expf(mrow[1] - mn1);
+    for (int j = 0; j < 8; ++j) {
+      x0 = fmaxf(x0, fmaxf(s[4 * j], s[4 * j + 1]));
+      x1 = fmaxf(x1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    const float mn0 = fmaxf(m0, quad_max(x0) * sl2e);
+    const float mn1 = fmaxf(m1, quad_max(x1) * sl2e);
+    al0 = hop::ex2(m0 - mn0);
+    al1 = hop::ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < BKV16 / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mn0);
-      s[nt][1] = expf(s[nt][1] - mn0);
-      s[nt][2] = expf(s[nt][2] - mn1);
-      s[nt][3] = expf(s[nt][3] - mn1);
-      ps0 += s[nt][0] + s[nt][1];
-      ps1 += s[nt][2] + s[nt][3];
+    for (int j = 0; j < 8; ++j) {
+      s[4 * j] = hop::ex2(fmaf(s[4 * j], sl2e, -mn0));
+      s[4 * j + 1] = hop::ex2(fmaf(s[4 * j + 1], sl2e, -mn0));
+      s[4 * j + 2] = hop::ex2(fmaf(s[4 * j + 2], sl2e, -mn1));
+      s[4 * j + 3] = hop::ex2(fmaf(s[4 * j + 3], sl2e, -mn1));
+      ps0 += s[4 * j] + s[4 * j + 1];
+      ps1 += s[4 * j + 2] + s[4 * j + 3];
     }
-    lrow[0] = lrow[0] * al0 + quad_sum(ps0);
-    lrow[1] = lrow[1] * al1 + quad_sum(ps1);
-    mrow[0] = mn0;
-    mrow[1] = mn1;
+    l0 = l0 * al0 + ps0;
+    l1 = l1 * al1 + ps1;
+  };
+  uint32_t pa[4][4];
+  auto pack = [&]() {
 #pragma unroll
-    for (int dt = 0; dt < DT; ++dt) {
-      oacc[dt][0] *= al0;
-      oacc[dt][1] *= al0;
-      oacc[dt][2] *= al1;
-      oacc[dt][3] *= al1;
-    }
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[kk][i] = hop::pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+  };
 
+  float oacc[DP / 2];
 #pragma unroll
-    for (int kk = 0; kk < BKV16 / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_f(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_f(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_f(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_f(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const bf16* vr = Vs + (kk * 16 + t4 * 2) * LD + g;
+  for (int i = 0; i < DP / 2; ++i) oacc[i] = 0.f;
+  auto rescale = [&]() {  // O *= exp2(m_old - m_new), row by row
 #pragma unroll
-      for (int dt = 0; dt < DT; ++dt) {
-        const bf16* vc = vr + dt * 8;
-        const uint32_t b0 = pack_b(vc[0], vc[LD]);
-        const uint32_t b1 = pack_b(vc[8 * LD], vc[9 * LD]);
-        mma_bf16(oacc[dt], pa, b0, b1);
-      }
+    for (int j = 0; j < DP / 8; ++j) {
+      oacc[4 * j] *= al0;
+      oacc[4 * j + 1] *= al0;
+      oacc[4 * j + 2] *= al1;
+      oacc[4 * j + 3] *= al1;
     }
+  };
+  auto pv = [&](int t) {  // issue O += P V_t
+    hop::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<DP>::rs(oacc, pa[kk],
+                    hop::desc_mnmajor<DP>(sv(t) + kk * 2 * DP * 16), 1);
+    hop::wg_commit();
+  };
+
+  qk(0);
+  hop::wg_wait<0>();
+  hop::fence_regs(s);
+  softmax(0);
+  pack();
+  // The last tile is peeled off so that no branch surrounds a wgmma and O
+  // is rescaled before the stage opens: ptxas then keeps S of tile t + 1
+  // and P V of tile t in flight together (with a branch inside the loop it
+  // serializes every wgmma, warning C7514).
+  for (int t = 0; t + 1 < ntiles; ++t) {
+    hop::cp_wait<STAGES - 3>();  // tile t + 1
+    hop::fence_async_smem();
+    __syncthreads();             // ... and every warp is done with t - 1
+    if (t + STAGES - 1 < ntiles) load_kv(t + STAGES - 1);
+    hop::cp_commit();
+    rescale();
+    hop::fence_regs(oacc);
+    qk(t + 1);
+    pv(t);
+    hop::wg_wait<1>();           // S of tile t + 1; P V of tile t may run on
+    hop::fence_regs(s);
+    softmax(t + 1);
+    hop::wg_wait<0>();
+    hop::fence_regs(oacc);
+    pack();
   }
+  rescale();
+  pv(ntiles - 1);
+  hop::wg_wait<0>();
+  hop::fence_regs(oacc);
 
-  const float inv0 = 1.f / lrow[0], inv1 = 1.f / lrow[1];
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   bf16* og = o + (size_t)grp * M * C + h * D;
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int col = dt * 8 + t4 * 2;
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = j * 8 + t4 * 2;
     if (col < D) {
       if (r0 < M)
         *reinterpret_cast<__nv_bfloat162*>(og + (size_t)r0 * C + col) =
-            __floats2bfloat162_rn(oacc[dt][0] * inv0, oacc[dt][1] * inv0);
+            __floats2bfloat162_rn(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
       if (r1 < M)
         *reinterpret_cast<__nv_bfloat162*>(og + (size_t)r1 * C + col) =
-            __floats2bfloat162_rn(oacc[dt][2] * inv1, oacc[dt][3] * inv1);
+            __floats2bfloat162_rn(oacc[4 * j + 2] * inv1,
+                                  oacc[4 * j + 3] * inv1);
     }
   }
-  if (lse != nullptr && t4 == 0) {
+  if (lse != nullptr && t4 == 0) {  // natural log, as B5 reads it
     float* lg = lse + (size_t)grp * M * H + h;
-    if (r0 < M) lg[(size_t)r0 * H] = mrow[0] + logf(lrow[0]);
-    if (r1 < M) lg[(size_t)r1 * H] = mrow[1] + logf(lrow[1]);
+    if (r0 < M) lg[(size_t)r0 * H] = m0 * LN2 + logf(l0);
+    if (r1 < M) lg[(size_t)r1 * H] = m1 * LN2 + logf(l1);
   }
 }
 
@@ -348,12 +376,14 @@ template <int DP>
 int launch_bf16(int G, int M, int Sk, int kv_len, int H, int D, float scale,
                 const void* q, const void* k, const void* v, void* o,
                 float* lse, cudaStream_t s) {
-  const int smem = 3 * 64 * (DP + 8) * (int)sizeof(bf16);
+  constexpr int NWG = 2;  // 128 query rows a block share each K/V tile
+  const int smem = (NWG + 2 * STAGES) * 64 * DP * (int)sizeof(bf16);
   cudaError_t e = cudaFuncSetAttribute(
-      attn_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attn_bf16_kernel<DP, NWG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((M + BQ16 - 1) / BQ16, H, G);
-  attn_bf16_kernel<DP><<<grid, 128, smem, s>>>(
+  const dim3 grid((M + 64 * NWG - 1) / (64 * NWG), H, G);
+  attn_bf16_kernel<DP, NWG><<<grid, 128 * NWG, smem, s>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, M, Sk,
       kv_len, H, D, scale);
   return (int)cudaGetLastError();

@@ -23,280 +23,382 @@
 // rounded to q's dtype and P to v's dtype before the three products that
 // consume them (pallas :722-723).  Rows of dK/dV in [kv_len, Sk) are zero.
 //
-// bf16: mma.sync m16n8k16, 4 warps x 16 rows, 64 x 64 tiles; dS and P go
-// from the accumulator registers straight into the A fragments of the next
-// product.  The head tile is padded to a multiple of 16 with zeros and the
-// padded columns are never stored.  For head tiles wider than 96 the dK/dV
-// kernel splits the head dim over two blocks (each recomputes S^T) so that
-// its two accumulators stay in registers.
+// bf16: every product on wgmma, each warpgroup (128 threads) owning 64
+// rows, two warpgroups a block sharing the streamed tiles (one in a dK/dV
+// block when Sk <= 64).  S and dO V^T (or their transposes) are m64n64k16
+// with both operands K-major in shared memory; dS and P go from the
+// accumulator registers straight into the A fragments of the products that
+// consume them, whose B operand (K, Q or dO) is read MN-major through its
+// descriptor: no operand is transposed by hand and no 16-bit shared load
+// remains.  The streamed operands (K/V in the dQ kernel; Q, dO, lse and dd
+// in the dK/dV kernel) come through a 3-stage cp.async ring, so the next
+// tiles' copies overlap this tile's products.  P is exp2 of one FMA (scale
+// * log2 e folded in, lse converted to base 2 once per row).  Head tiles are
+// padded to a multiple of 16 with zero-filled copies and the padding is
+// never stored.  For head tiles wider than 96 the dK/dV kernel splits the
+// head dim over two blocks (each recomputes S^T) so that its two
+// accumulators stay in registers.  With few K/V rows (77 text or 25 audio
+// tokens: one or two K/V tiles a head) the dK/dV grid would leave most of
+// the 132 SMs idle while each block walks every query tile; the caller then
+// asks for `nsplit` query ranges, each block stores fp32 partial sums, and
+// a second kernel adds them in a fixed order and casts once (no atomics:
+// the result does not depend on timing).
 // fp32: a plain FMA path, 32 rows x 4 threads each, for the fp32 checks.
 //
-// What bounds it on the H100: five matrix products per tile pair against
-// three in the forward, with the same short contraction (K-dim 48 at
-// d = 40), so the fp32 exp and the 16-bit shared loads of the transposed
-// operands cost as much as the MMAs; with few K/V rows (Sk = 77, 25) the
-// dK/dV kernel has few blocks with long loops.  This simple design does
-// nothing about either yet.
+// What bounds it on the H100: seven products per tile pair (S and dO V^T
+// are computed in both kernels) against the five the algorithm needs, with
+// a short contraction (48 at d = 40) beside 4096 exp2 per 64 x 64 tile.  At
+// the training attn1 (M 12288, Sk 1024, d 40, 32 heads) the five products
+// are 161 GFLOP, 0.163 ms at the bf16 peak: the exp/softmax issue rate and
+// the copy latency bound it, not the tensor cores, as in the forward.  The
+// two-kernel form stays: five products with dQ atomics only tied seven at
+// Sk 1024 and lost at few K/V rows (T2b, PERF.md).  Inside each tile the
+// elementwise work waits on two products and feeds the next two; issuing
+// the next tile's logit products first keeps two S/dP pairs live, which
+// costs the blocks an SM holds more than it overlaps (see the schedule
+// below), so the overlap comes from the other blocks and warpgroups on the
+// SM, and the split above keeps the SMs full.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+#include "wgmma.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_f(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint32_t pack_b(bf16 lo, bf16 hi) {
-  __nv_bfloat162 p;
-  p.x = lo;
-  p.y = hi;
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
 // ---------------------------------------------------------------- bf16 ---
 
-constexpr int T16 = 64;  // rows of every bf16 tile (query and K/V)
-
-// rows [row0, row0 + 64) x cols [0, DP) of a (rows, ld) head slice into
-// dst[64][DP + 8]; rows >= nvalid and cols >= D are zero.
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src,
-                                          int row0, int nvalid, int ld, int D) {
-  constexpr int CPR = DP / 8, LD = DP + 8;
-  for (int c = threadIdx.x; c < T16 * CPR; c += blockDim.x) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < nvalid && col < D)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + col);
-    *reinterpret_cast<uint4*>(dst + r * LD + col) = v;
-  }
+// P (or dS) accumulator of a 64 x 64 product -> the A fragments of the
+// four k16 steps of the next product, rounded to bf16
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4],
+                                           const float (&p)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[kk][i] = hop::pack_bf16(p[8 * kk + 2 * i], p[8 * kk + 2 * i + 1]);
 }
 
-// s (16 x 64, this warp's rows) = A[16 x DP] B[64 x DP]^T, both in shared
-// memory with row stride DP + 8; `a` points at the warp's first row.
-template <int DP>
-__device__ __forceinline__ void mma_abt(float (&s)[8][4], const bf16* a,
-                                        const bf16* b, int g, int t4) {
-  constexpr int LD = DP + 8, KC = DP / 16;
+// acc (64 x N) += A (64 x 64, four fragments) B (64 x N): B is a 64-row
+// tile read MN-major from column `c0` on
+template <int DP, int N>
+__device__ __forceinline__ void mma_rows(float (&acc)[N / 2],
+                                         const uint32_t (&a)[4][4],
+                                         uint32_t tile, int c0) {
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const bf16* ar = a + g * LD + kc * 16 + t4 * 2;
-    uint32_t af[4];
-    af[0] = *reinterpret_cast<const uint32_t*>(ar);
-    af[1] = *reinterpret_cast<const uint32_t*>(ar + 8 * LD);
-    af[2] = *reinterpret_cast<const uint32_t*>(ar + 8);
-    af[3] = *reinterpret_cast<const uint32_t*>(ar + 8 * LD + 8);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const bf16* br = b + (nt * 8 + g) * LD + kc * 16 + t4 * 2;
-      mma_bf16(s[nt], af, *reinterpret_cast<const uint32_t*>(br),
-               *reinterpret_cast<const uint32_t*>(br + 8));
-    }
-  }
+  for (int kk = 0; kk < 4; ++kk)
+    Wgmma<N>::rs(acc, a[kk],
+                 hop::desc_mnmajor<DP>(tile + (c0 / 8) * 128 +
+                                       kk * 2 * DP * 16), 1);
 }
 
-// acc (16 x 8 NT) += round_bf16(p)[16 x 64] B[64 x 8 NT]; p is a product's
-// accumulator, b points at B's first column (row stride LD).
-template <int LD, int NT>
-__device__ __forceinline__ void mma_pb(float (&acc)[NT][4],
-                                       const float (&p)[8][4], const bf16* b,
-                                       int g, int t4) {
+// s (64 x 64) = A B^T over the padded head dim, both 64-row tiles K-major
+template <int DP>
+__device__ __forceinline__ void mma_abt(float (&s)[32], uint32_t a,
+                                        uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t pa[4];
-    pa[0] = pack_f(p[2 * kk][0], p[2 * kk][1]);
-    pa[1] = pack_f(p[2 * kk][2], p[2 * kk][3]);
-    pa[2] = pack_f(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    pa[3] = pack_f(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-    const bf16* br = b + (kk * 16 + t4 * 2) * LD + g;
-#pragma unroll
-    for (int dt = 0; dt < NT; ++dt) {
-      const bf16* bc = br + dt * 8;
-      mma_bf16(acc[dt], pa, pack_b(bc[0], bc[LD]),
-               pack_b(bc[8 * LD], bc[9 * LD]));
-    }
-  }
+  for (int kc = 0; kc < DP / 16; ++kc)
+    Wgmma<64>::ss(s, hop::desc_kmajor<DP>(a + kc * 256),
+                  hop::desc_kmajor<DP>(b + kc * 256), kc > 0);
 }
 
-template <int DP>
-__global__ void __launch_bounds__(128)
+// The two kernels share one schedule.  NWG warpgroups (128 threads each) per
+// block own 64 rows each (query rows for dQ, K/V rows for dK/dV) and share
+// the tiles that stream past them through a STAGES-deep cp.async ring.  Per
+// streamed tile i each warpgroup runs the two logit-shaped products (S and
+// dO V^T, or their transposes), the elementwise work on their accumulators,
+// then the products that consume P and dS.  Iteration i opens with a block
+// barrier once tile i has landed; by then every warp is done with tile
+// i - 1, whose stage takes the copy of tile i + STAGES - 1, so two tiles'
+// copies are in flight during each tile's products.  Issuing tile i + 1's
+// logit products before tile i's consuming ones (software pipelining inside
+// the warpgroup) was measured slower: it keeps a second S/dP pair live,
+// 130 instead of 117 registers in the dQ kernel at d = 40, which halves the
+// blocks an SM holds (PERF.md).
+constexpr int STAGES = 3;
+
+// dQ: Q and dO stay in shared memory, K/V tiles stream.
+template <int DP, int NWG>
+__global__ void __launch_bounds__(128 * NWG)
 bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ dd,
                    bf16* __restrict__ dq, int M, int Sk, int kv_len, int H,
                    int D, float scale) {
-  constexpr int LD = DP + 8, DT = DP / 8;
+  constexpr int TILE = 64 * DP * 2, NT = 128 * NWG;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Os = Qs + T16 * LD;
-  bf16* Ks = Os + T16 * LD;
-  bf16* Vs = Ks + T16 * LD;
+  const uint32_t sq = hop::smem_u32(smem), so = sq + NWG * TILE;
+  auto sk = [&](int t) { return sq + TILE * (2 * NWG + 2 * (t % STAGES)); };
+  auto sv = [&](int t) { return sk(t) + TILE; };
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q0 = blockIdx.x * T16, h = blockIdx.y, grp = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * 64 * NWG, h = blockIdx.y, grp = blockIdx.z;
   const int C = H * D;
   const size_t qoff = (size_t)grp * M * C + h * D;
   const size_t koff = (size_t)grp * Sk * C + h * D;
+  const int ntiles = (kv_len + 63) / 64;
+  const uint32_t sqw = sq + wg * TILE, sow = so + wg * TILE;
+  auto load_kv = [&](int t) {
+    hop::load_tile_async<DP, NT>(sk(t), k + koff, t * 64, kv_len, C, D, tid);
+    hop::load_tile_async<DP, NT>(sv(t), v + koff, t * 64, kv_len, C, D, tid);
+  };
 
-  load_tile<DP>(Qs, q + qoff, q0, M, C, D);
-  load_tile<DP>(Os, dout + qoff, q0, M, C, D);
+  hop::load_tile_async<DP, NT, 64 * NWG>(sq, q + qoff, q0, M, C, D, tid);
+  hop::load_tile_async<DP, NT, 64 * NWG>(so, dout + qoff, q0, M, C, D, tid);
+#pragma unroll
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < ntiles) load_kv(t);
+    hop::cp_commit();
+  }
 
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  const int r0 = q0 + wg * 64 + warp * 16 + g, r1 = r0 + 8;
   const float* lg = lse + (size_t)grp * M * H + h;
   const float* dg = dd + (size_t)grp * M * H + h;
-  const float l0 = r0 < M ? lg[(size_t)r0 * H] : 0.f;
-  const float l1 = r1 < M ? lg[(size_t)r1 * H] : 0.f;
+  const float l0 = r0 < M ? lg[(size_t)r0 * H] * hop::LOG2E : 0.f;
+  const float l1 = r1 < M ? lg[(size_t)r1 * H] * hop::LOG2E : 0.f;
   const float d0 = r0 < M ? dg[(size_t)r0 * H] : 0.f;
   const float d1 = r1 < M ? dg[(size_t)r1 * H] : 0.f;
+  const float sl2e = scale * hop::LOG2E;
+  hop::cp_wait<STAGES - 2>();
+  hop::fence_async_smem();
+  __syncthreads();
 
-  float acc[DT][4];
+  float s[32], dp[32];
+  auto grad_s = [&](int t) {  // s, dp (tile t) -> dS in s
+    const bool edge = (t + 1) * 64 > kv_len;
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-
-  const int ntiles = (kv_len + T16 - 1) / T16;
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * T16;
-    __syncthreads();  // the previous tile's reads are done
-    load_tile<DP>(Ks, k + koff, k0, kv_len, C, D);
-    load_tile<DP>(Vs, v + koff, k0, kv_len, C, D);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mma_abt<DP>(s, Qs + warp * 16 * LD, Ks, g, t4);
-    mma_abt<DP>(dp, Os + warp * 16 * LD, Vs, g, t4);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + t4 * 2 + (e & 1);
-        const float lr = e < 2 ? l0 : l1, dr = e < 2 ? d0 : d1;
-        const float p = col < kv_len ? expf(s[nt][e] * scale - lr) : 0.f;
-        s[nt][e] = p * (dp[nt][e] - dr) * scale;
+        const int i = 4 * j + e;
+        float p = hop::ex2(fmaf(s[i], sl2e, -(e < 2 ? l0 : l1)));
+        if (edge && t * 64 + 8 * j + 2 * t4 + (e & 1) >= kv_len) p = 0.f;
+        s[i] = p * (dp[i] - (e < 2 ? d0 : d1)) * scale;
       }
-    mma_pb<LD, DT>(acc, s, Ks, g, t4);
+  };
+
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  uint32_t a[4][4];
+  for (int t = 0; t < ntiles; ++t) {
+    if (t > 0) {
+      hop::cp_wait<STAGES - 2>();  // tile t
+      hop::fence_async_smem();
+      __syncthreads();             // ... and every warp is done with t - 1
+    }
+    if (t + STAGES - 1 < ntiles) load_kv(t + STAGES - 1);
+    hop::cp_commit();
+    hop::wg_fence();               // S = Q K_t^T, dP = dO V_t^T
+    mma_abt<DP>(s, sqw, sk(t));
+    mma_abt<DP>(dp, sow, sv(t));
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(s);
+    hop::fence_regs(dp);
+    grad_s(t);
+    to_a_frags(a, s);
+    hop::wg_fence();
+    mma_rows<DP, DP>(acc, a, sk(t), 0);
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(acc);
   }
 
   bf16* og = dq + qoff;
 #pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int col = dt * 8 + t4 * 2;
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = j * 8 + t4 * 2;
     if (col < D) {
       if (r0 < M)
         *reinterpret_cast<__nv_bfloat162*>(og + (size_t)r0 * C + col) =
-            __floats2bfloat162_rn(acc[dt][0], acc[dt][1]);
+            __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
       if (r1 < M)
         *reinterpret_cast<__nv_bfloat162*>(og + (size_t)r1 * C + col) =
-            __floats2bfloat162_rn(acc[dt][2], acc[dt][3]);
+            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
     }
   }
 }
 
-// DS: the width of the head-dim slice whose dK/dV this block accumulates;
-// blockIdx.x = kv tile * (DP / DS) + slice.
-template <int DP, int DS>
-__global__ void __launch_bounds__(128)
+// dK/dV: K and V stay in shared memory while Q, dO, lse and dd stream; a
+// block's warpgroups own 64 K/V rows each of one head and DS columns of its
+// head dim.  blockIdx.x = K/V row block * (DP / DS) + slice; blockIdx.z =
+// group * nsplit + split: split s of nsplit walks only its share of the
+// query tiles and, when nsplit > 1, stores its fp32 partial dK/dV into
+// ws[0 or 1][s] for bwd_dkv_sum_kernel instead of the bf16 dk/dv.
+template <int DP, int DS, int NWG>
+__global__ void __launch_bounds__(128 * NWG)
 bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ dd,
-                    bf16* __restrict__ dk, bf16* __restrict__ dv, int M,
-                    int Sk, int kv_len, int H, int D, float scale) {
-  constexpr int LD = DP + 8, NS = DP / DS, NT = DS / 8;
+                    bf16* __restrict__ dk, bf16* __restrict__ dv,
+                    float* __restrict__ ws, int nsplit, int M, int Sk,
+                    int kv_len, int H, int D, float scale) {
+  constexpr int TILE = 64 * DP * 2, NS = DP / DS, NT = 128 * NWG;
+  constexpr int STAGE = 2 * TILE + 2 * 64 * 4;  // Q, dO, lse, dd
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + T16 * LD;
-  bf16* Qs = Vs + T16 * LD;
-  bf16* Os = Qs + T16 * LD;
-  float* Ls = reinterpret_cast<float*>(Os + T16 * LD);
-  float* Ds = Ls + T16;
+  const uint32_t sk = hop::smem_u32(smem), sv = sk + NWG * TILE;
+  const uint32_t ring = sk + 2 * NWG * TILE;
+  auto sq = [&](int i) { return ring + STAGE * (i % STAGES); };
+  auto so = [&](int i) { return sq(i) + TILE; };
+  auto sl = [&](int i) {  // lse[64], then dd[64], of stage i
+    return reinterpret_cast<const float*>(
+        smem + 2 * NWG * TILE + STAGE * (i % STAGES) + 2 * TILE);
+  };
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int k0 = (blockIdx.x / NS) * T16, c0 = (blockIdx.x % NS) * DS;
-  const int h = blockIdx.y, grp = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3;
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int k0 = (blockIdx.x / NS) * 64 * NWG, c0 = (blockIdx.x % NS) * DS;
+  const int h = blockIdx.y, grp = blockIdx.z / nsplit;
+  const int split = blockIdx.z % nsplit;
   const int C = H * D;
   const size_t qoff = (size_t)grp * M * C + h * D;
   const size_t koff = (size_t)grp * Sk * C + h * D;
   const float* lg = lse + (size_t)grp * M * H + h;
   const float* dg = dd + (size_t)grp * M * H + h;
+  const int qtiles = (M + 63) / 64, per = (qtiles + nsplit - 1) / nsplit;
+  const int qt0 = min(qtiles, split * per), qt1 = min(qtiles, qt0 + per);
+  const int n = qt1 - qt0;
+  const uint32_t skw = sk + wg * TILE, svw = sv + wg * TILE;
 
-  load_tile<DP>(Ks, k + koff, k0, kv_len, C, D);
-  load_tile<DP>(Vs, v + koff, k0, kv_len, C, D);
-
-  float ak[NT][4], av[NT][4];
-#pragma unroll
-  for (int dt = 0; dt < NT; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ak[dt][e] = av[dt][e] = 0.f;
-
-  const int j0 = k0 + warp * 16 + g, j1 = j0 + 8;  // this thread's K/V rows
-  for (int q0 = 0; q0 < M; q0 += T16) {
-    __syncthreads();  // the previous tile's reads are done
-    load_tile<DP>(Qs, q + qoff, q0, M, C, D);
-    load_tile<DP>(Os, dout + qoff, q0, M, C, D);
-    if (tid < T16) {
-      const bool ok = q0 + tid < M;
-      Ls[tid] = ok ? lg[(size_t)(q0 + tid) * H] : 0.f;
-      Ds[tid] = ok ? dg[(size_t)(q0 + tid) * H] : 0.f;
+  auto load_q = [&](int i) {  // query tile qt0 + i into stage i
+    const int m0 = (qt0 + i) * 64;
+    hop::load_tile_async<DP, NT>(sq(i), q + qoff, m0, M, C, D, tid);
+    hop::load_tile_async<DP, NT>(so(i), dout + qoff, m0, M, C, D, tid);
+    if (tid < 128) {
+      const int r = m0 + (tid & 63);
+      const float* src = (tid < 64 ? lg : dg) + (size_t)r * H;
+      hop::cp_async4(sq(i) + 2 * TILE + tid * 4, r < M ? src : lg, r < M);
     }
-    __syncthreads();
+  };
 
-    float st[8][4], dpt[8][4];  // S^T and (dO V^T)^T: rows K/V, cols queries
-    mma_abt<DP>(st, Ks + warp * 16 * LD, Qs, g, t4);
-    mma_abt<DP>(dpt, Vs + warp * 16 * LD, Os, g, t4);
+  hop::load_tile_async<DP, NT, 64 * NWG>(sk, k + koff, k0, kv_len, C, D, tid);
+  hop::load_tile_async<DP, NT, 64 * NWG>(sv, v + koff, k0, kv_len, C, D, tid);
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n) load_q(i);
+    hop::cp_commit();
+  }
+  hop::cp_wait<STAGES - 2>();
+  hop::fence_async_smem();
+  __syncthreads();
+
+  // this thread's K/V rows
+  const int j0 = k0 + wg * 64 + warp * 16 + g, j1 = j0 + 8;
+  const bool rows_edge = k0 + wg * 64 + 64 > kv_len;
+  const float sl2e = scale * hop::LOG2E;
+  float s[32], dp[32];  // S^T and (dO V^T)^T: rows K/V, columns queries
+  auto grad_s = [&](int i) {  // s, dp (tile i) -> P^T in s, dS^T in dp
+    const float* ls = sl(i);
+    const float* ds = ls + 64;
+    const int m0 = (qt0 + i) * 64;
+    const bool cols_edge = m0 + 64 > M;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int m = 8 * j + 2 * t4;
+      const float2 lm = *reinterpret_cast<const float2*>(ls + m);
+      const float2 dm = *reinterpret_cast<const float2*>(ds + m);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int m = nt * 8 + t4 * 2 + (e & 1);
-        const bool ok = q0 + m < M && (e < 2 ? j0 : j1) < kv_len;
-        const float p = ok ? expf(st[nt][e] * scale - Ls[m]) : 0.f;
-        st[nt][e] = p;
-        dpt[nt][e] = p * (dpt[nt][e] - Ds[m]) * scale;
+        const int i4 = 4 * j + e;
+        float p = hop::ex2(fmaf(s[i4], sl2e,
+                                -(e & 1 ? lm.y : lm.x) * hop::LOG2E));
+        if ((cols_edge && m0 + m + (e & 1) >= M) ||
+            (rows_edge && (e < 2 ? j0 : j1) >= kv_len))
+          p = 0.f;
+        s[i4] = p;
+        dp[i4] = p * (dp[i4] - (e & 1 ? dm.y : dm.x)) * scale;
       }
-    mma_pb<LD, NT>(av, st, Os + c0, g, t4);
-    mma_pb<LD, NT>(ak, dpt, Qs + c0, g, t4);
+    }
+  };
+
+  float ak[DS / 2], av[DS / 2];
+#pragma unroll
+  for (int i = 0; i < DS / 2; ++i) ak[i] = av[i] = 0.f;
+  uint32_t pa[4][4], da[4][4];
+  for (int i = 0; i < n; ++i) {
+    if (i > 0) {
+      hop::cp_wait<STAGES - 2>();  // query tile i
+      hop::fence_async_smem();
+      __syncthreads();             // ... and every warp is done with i - 1
+    }
+    if (i + STAGES - 1 < n) load_q(i + STAGES - 1);
+    hop::cp_commit();
+    hop::wg_fence();               // S^T = K Q_i^T, dP^T = V dO_i^T
+    mma_abt<DP>(s, skw, sq(i));
+    mma_abt<DP>(dp, svw, so(i));
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(s);
+    hop::fence_regs(dp);
+    grad_s(i);
+    to_a_frags(pa, s);
+    to_a_frags(da, dp);
+    hop::wg_fence();
+    mma_rows<DP, DS>(av, pa, so(i), c0);
+    mma_rows<DP, DS>(ak, da, sq(i), c0);
+    hop::wg_commit();
+    hop::wg_wait<0>();
+    hop::fence_regs(av);
+    hop::fence_regs(ak);
   }
 
-  bf16* kg = dk + koff;
-  bf16* vg = dv + koff;
+  const size_t n_all = (size_t)(gridDim.z / nsplit) * Sk * C;
+  float* wk = ws + (size_t)split * n_all;
+  float* wv = ws + (size_t)(nsplit + split) * n_all;
 #pragma unroll
-  for (int dt = 0; dt < NT; ++dt) {
-    const int col = c0 + dt * 8 + t4 * 2;
-    if (col < D) {
-      if (j0 < Sk) {
-        *reinterpret_cast<__nv_bfloat162*>(kg + (size_t)j0 * C + col) =
-            __floats2bfloat162_rn(ak[dt][0], ak[dt][1]);
-        *reinterpret_cast<__nv_bfloat162*>(vg + (size_t)j0 * C + col) =
-            __floats2bfloat162_rn(av[dt][0], av[dt][1]);
+  for (int j = 0; j < DS / 8; ++j) {
+    const int col = c0 + j * 8 + t4 * 2;
+    if (col >= D) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? j1 : j0;
+      if (row >= Sk) continue;
+      const size_t at = koff + (size_t)row * C + col;
+      const float* kr = ak + 4 * j + 2 * half;
+      const float* vr = av + 4 * j + 2 * half;
+      if (nsplit == 1) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + at) =
+            __floats2bfloat162_rn(kr[0], kr[1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + at) =
+            __floats2bfloat162_rn(vr[0], vr[1]);
+      } else {
+        *reinterpret_cast<float2*>(wk + at) = make_float2(kr[0], kr[1]);
+        *reinterpret_cast<float2*>(wv + at) = make_float2(vr[0], vr[1]);
       }
-      if (j1 < Sk) {
-        *reinterpret_cast<__nv_bfloat162*>(kg + (size_t)j1 * C + col) =
-            __floats2bfloat162_rn(ak[dt][2], ak[dt][3]);
-        *reinterpret_cast<__nv_bfloat162*>(vg + (size_t)j1 * C + col) =
-            __floats2bfloat162_rn(av[dt][2], av[dt][3]);
+    }
+  }
+}
+
+// dk, dv (n elements each) = the sums over the nsplit fp32 partials, in
+// split order; n is a multiple of 4
+__global__ void bwd_dkv_sum_kernel(const float* __restrict__ ws,
+                                   bf16* __restrict__ dk,
+                                   bf16* __restrict__ dv, int nsplit,
+                                   size_t n) {
+  for (size_t i = (blockIdx.x * (size_t)blockDim.x + threadIdx.x) * 4; i < n;
+       i += (size_t)gridDim.x * blockDim.x * 4) {
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {
+      const float* src = ws + (size_t)which * nsplit * n + i;
+      float4 a = *reinterpret_cast<const float4*>(src);
+      for (int s = 1; s < nsplit; ++s) {
+        const float4 b = *reinterpret_cast<const float4*>(src + s * n);
+        a.x += b.x;
+        a.y += b.y;
+        a.z += b.z;
+        a.w += b.w;
       }
+      bf16* dst = (which ? dv : dk) + i;
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a.x, a.y);
+      *reinterpret_cast<__nv_bfloat162*>(dst + 2) =
+          __floats2bfloat162_rn(a.z, a.w);
     }
   }
 }
@@ -486,6 +588,8 @@ struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *dd;
   void *dq, *dk, *dv;
+  int nsplit;
+  float* ws;
   cudaStream_t s;
 };
 
@@ -495,31 +599,51 @@ int set_smem(K kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int DP>
+// NWK: warpgroups (64 K/V rows each) of a dK/dV block
+template <int DP, int NWK>
 int launch_bf16(const Args& a) {
+  constexpr int NWG = 2;  // dQ: 128 query rows a block share each K/V tile
   // head tiles wider than 96 keep half the dK/dV accumulators per block
   constexpr int DS = DP > 96 ? DP / 2 : DP;
   static_assert(DS % 8 == 0, "dK/dV head slice must be a multiple of 8");
-  const int tile = T16 * (DP + 8) * (int)sizeof(bf16);
-  const int smem_q = 4 * tile;
-  int e = set_smem(bwd_dq_bf16_kernel<DP>, smem_q);
+  const int tile = 64 * DP * (int)sizeof(bf16);
+  const int smem_q = (2 * NWG + 2 * STAGES) * tile;
+  int e = set_smem(bwd_dq_bf16_kernel<DP, NWG>, smem_q);
   if (e) return e;
-  bwd_dq_bf16_kernel<DP>
-      <<<dim3((a.M + T16 - 1) / T16, a.H, a.G), 128, smem_q, a.s>>>(
+  bwd_dq_bf16_kernel<DP, NWG>
+      <<<dim3((a.M + 64 * NWG - 1) / (64 * NWG), a.H, a.G), 128 * NWG,
+         smem_q, a.s>>>(
           (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
           (const bf16*)a.dout, a.lse, a.dd, (bf16*)a.dq, a.M, a.Sk, a.kv_len,
           a.H, a.D, a.scale);
   e = (int)cudaGetLastError();
   if (e || a.dk == nullptr) return e;
-  const int smem_kv = 4 * tile + 2 * T16 * (int)sizeof(float);
-  e = set_smem(bwd_dkv_bf16_kernel<DP, DS>, smem_kv);
+  const int smem_kv = 2 * NWK * tile + STAGES * (2 * tile + 2 * 64 * 4);
+  e = set_smem(bwd_dkv_bf16_kernel<DP, DS, NWK>, smem_kv);
   if (e) return e;
-  bwd_dkv_bf16_kernel<DP, DS>
-      <<<dim3((a.Sk + T16 - 1) / T16 * (DP / DS), a.H, a.G), 128, smem_kv,
-         a.s>>>((const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
-                (const bf16*)a.dout, a.lse, a.dd, (bf16*)a.dk, (bf16*)a.dv,
-                a.M, a.Sk, a.kv_len, a.H, a.D, a.scale);
+  bwd_dkv_bf16_kernel<DP, DS, NWK>
+      <<<dim3((a.Sk + 64 * NWK - 1) / (64 * NWK) * (DP / DS), a.H,
+              a.G * a.nsplit),
+         128 * NWK, smem_kv, a.s>>>(
+          (const bf16*)a.q, (const bf16*)a.k, (const bf16*)a.v,
+          (const bf16*)a.dout, a.lse, a.dd, (bf16*)a.dk, (bf16*)a.dv, a.ws,
+          a.nsplit, a.M, a.Sk, a.kv_len, a.H, a.D, a.scale);
+  e = (int)cudaGetLastError();
+  if (e || a.nsplit == 1) return e;
+  const size_t n = (size_t)a.G * a.Sk * a.H * a.D;
+  const int blocks = (int)((n / 4 + 255) / 256 < 1024 ? (n / 4 + 255) / 256
+                                                      : 1024);
+  bwd_dkv_sum_kernel<<<blocks, 256, 0, a.s>>>(a.ws, (bf16*)a.dk,
+                                              (bf16*)a.dv, a.nsplit, n);
   return (int)cudaGetLastError();
+}
+
+// Two warpgroups share each streamed query tile of a dK/dV block, halving
+// its copies; with one K/V tile a head (Sk <= 64: audio, the 8x8 level) the
+// second would have no rows, so the block is one warpgroup.
+template <int DP>
+int launch_bf16(const Args& a) {
+  return a.Sk <= 64 ? launch_bf16<DP, 1>(a) : launch_bf16<DP, 2>(a);
 }
 
 int launch_f32(const Args& a) {
@@ -551,19 +675,26 @@ int launch_f32(const Args& a) {
 
 // dtype: 0 = float32, 1 = bfloat16 (of q, k, v, dout, dq, dk, dv; lse and dd
 // are fp32).  D must be a multiple of 8 and at most 160; 1 <= kv_len <= Sk.
-// dk and dv are both null (only dQ is computed) or both given.  The Python
-// wrapper checks shapes, dtypes and contiguity.  Returns cudaGetLastError()
-// after the launches (0 = success).
-extern "C" int asva_mha_bwd(int dtype, int G, int M, int Sk, int kv_len,
-                            int H, int D, float scale, const void* q,
-                            const void* k, const void* v, const void* dout,
-                            const void* lse, const void* dd, void* dq,
-                            void* dk, void* dv, void* stream) {
+// dk and dv are both null (only dQ is computed) or both given.  nsplit >= 1
+// splits the bf16 dK/dV kernel over that many query ranges; with nsplit > 1
+// `ws` is fp32 scratch of 2 * nsplit * G * Sk * H * D elements (the fp32
+// path ignores both).  The Python wrapper checks shapes, dtypes and
+// contiguity and chooses nsplit.  Returns cudaGetLastError() after the
+// launches (0 = success).
+extern "C" int asva_mha_bwd_split(int dtype, int G, int M, int Sk,
+                                  int kv_len, int H, int D, float scale,
+                                  const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* dd, void* dq,
+                                  void* dk, void* dv, int nsplit, void* ws,
+                                  void* stream) {
   if (D % 8 || D > DMAX || kv_len < 1 || kv_len > Sk ||
-      (dk == nullptr) != (dv == nullptr))
+      (dk == nullptr) != (dv == nullptr) || nsplit < 1 ||
+      (dtype == 1 && nsplit > 1 && (ws == nullptr || dk == nullptr)))
     return (int)cudaErrorInvalidValue;
   const Args a = {G, M, Sk, kv_len, H, D, scale, q, k, v, dout,
                   (const float*)lse, (const float*)dd, dq, dk, dv,
+                  dtype == 1 ? nsplit : 1, (float*)ws,
                   (cudaStream_t)stream};
   if (dtype == 1) {
 #define ASVA_CASE(DP) \
@@ -578,4 +709,14 @@ extern "C" int asva_mha_bwd(int dtype, int G, int M, int Sk, int kv_len,
   }
   if (dtype != 0) return (int)cudaErrorInvalidValue;
   return launch_f32(a);
+}
+
+// The same without the split (nsplit = 1).
+extern "C" int asva_mha_bwd(int dtype, int G, int M, int Sk, int kv_len,
+                            int H, int D, float scale, const void* q,
+                            const void* k, const void* v, const void* dout,
+                            const void* lse, const void* dd, void* dq,
+                            void* dk, void* dv, void* stream) {
+  return asva_mha_bwd_split(dtype, G, M, Sk, kv_len, H, D, scale, q, k, v,
+                            dout, lse, dd, dq, dk, dv, 1, nullptr, stream);
 }

@@ -8,8 +8,9 @@
 // 64-row query tile and `group` heads; for every 64-row K/V tile each warp
 // first starts the QK^T products of all its heads (their logits live in
 // registers at once) and then runs softmax + PV head by head.  group = 1 is
-// B4's schedule.  Per head the statements are attn.cu's, in its order, so o
-// and lse equal B4's bit for bit for every group size.
+// the mma.sync schedule B4 had before it moved to wgmma.  Per head the
+// statements are the same, in the same order, so o and lse are bit-equal
+// across group sizes, and within rounding of B4's.
 //
 // Layout as attn.cu: q, o (G, M, H*D); k, v (G, Sk, H*D); lse (G, M, H) fp32;
 // columns >= kv_len masked to -1e9, rows past kv_len never read.

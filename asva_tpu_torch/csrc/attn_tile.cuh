@@ -1,8 +1,9 @@
 // Tile code shared by the kernel-tool sources (attn_variants.cu T1,
 // attn_grouped.cu T2f, attn_bwd_fused.cu T2b): the bf16 mma.sync m16n8k16
-// fragments, the 64-row head-tile loader and the quad reductions, written
-// exactly as attn.cu / attn_bwd.cu write them so that the same products sum
-// in the same order (T2f must reproduce B4 bit for bit).
+// fragments, the 64-row head-tile loader and the quad reductions, in the
+// order of the mma.sync forms of attn.cu / attn_bwd.cu that preceded their
+// wgmma forms: the tools' baseline schedule.  T2f's groups reproduce one
+// another bit for bit; against B4 they agree within rounding.
 //
 // Layout conventions: a warp owns 16 rows; lane = 4 * g + t4; an mma
 // accumulator c[4] holds rows g (c[0], c[1]) and g + 8 (c[2], c[3]) at

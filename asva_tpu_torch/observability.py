@@ -6,12 +6,9 @@ of asva_tpu/observability.py:
   * profile_steps — a torch.profiler trace around the enclosed steps
     (a Chrome trace in `logdir`);
   * GracefulShutdown — SIGTERM/SIGINT set `.requested`, so the train loop
-    writes a last checkpoint instead of losing its progress.
-
-Single-process behaviour only: the cross-process agreement on the shutdown
-flag (`requested_global` across ranks) belongs with the multi-process
-training of the `parallel/` package and is not ported yet; here
-`requested_global()` and `poll()` return the local flag.
+    writes a last checkpoint instead of losing its progress; with several
+    processes the ranks agree on the flag through the torch.distributed
+    store, so that all of them stop at the same step.
 """
 from __future__ import annotations
 
@@ -21,6 +18,7 @@ import logging
 import os
 import signal
 import time
+from datetime import timedelta
 from typing import Optional
 
 
@@ -91,10 +89,25 @@ class GracefulShutdown:
 
     The FIRST signal flips the flag and restores the previous handlers, so a
     second Ctrl-C force-quits instead of being swallowed while the final
-    (possibly slow) checkpoint write runs."""
+    (possibly slow) checkpoint write runs.
 
-    def __init__(self):
+    With several processes every rank must poll at the same steps, or some
+    ranks keep training while others save and the fleet deadlocks in the
+    next collective.  `store`, `rank`, `world_size`: the torch.distributed
+    store the ranks agree through and this process's place among them; by
+    default those of the default process group once torch.distributed is
+    initialized (a test can drive two ranks as two threads on one
+    HashStore)."""
+
+    #: bound on how long a rank waits for its peers' shutdown flags before
+    #: raising (instead of hanging forever on a dead peer)
+    agreement_timeout_s: float = 600.0
+
+    def __init__(self, store=None, rank: Optional[int] = None,
+                 world_size: Optional[int] = None):
         self.requested = False
+        self._round = 0      # store agreement round (requested_global)
+        self._group = (store, rank, world_size)
         self._prev = {}
         for sig in (signal.SIGTERM, signal.SIGINT):
             try:
@@ -106,14 +119,65 @@ class GracefulShutdown:
         self.requested = True
         self.restore()  # second signal terminates normally
 
+    def _peers(self):
+        """(store, rank, world size) when more than one process takes part,
+        else None."""
+        store, rank, world = self._group
+        if store is None:
+            import torch.distributed as dist
+            if not (dist.is_available() and dist.is_initialized()):
+                return None
+            store = dist.distributed_c10d._get_default_store()
+            rank, world = dist.get_rank(), dist.get_world_size()
+        return (store, rank, world) if world > 1 else None
+
     def poll(self, sync_point: bool = True) -> bool:
-        """Checkpoint-worthy shutdown check for train loops (one process:
-        the local flag, whatever `sync_point`)."""
-        return self.requested
+        """Checkpoint-worthy shutdown check for train loops.
+
+        One process: the local flag, checked every call.  Several: the
+        agreement runs only when `sync_point` is True — pass a condition
+        that evaluates identically on every rank (e.g. step % log_steps ==
+        0), because all ranks must take part in each round."""
+        if self._peers() is None:
+            return self.requested
+        if not sync_point:
+            return False
+        return self.requested_global()
 
     def requested_global(self) -> bool:
-        """One process: the local flag."""
-        return self.requested
+        """True iff ANY process got the signal; one process: the local
+        flag.  Each round every rank sets `asva/graceful_shutdown/<round>/
+        <rank>` in the store and reads every peer's key, waiting at most
+        `agreement_timeout_s` for each: a missing peer raises TimeoutError
+        instead of hanging (asva_tpu/observability.py:140-199)."""
+        peers = self._peers()
+        if peers is None:
+            return self.requested
+        store, rank, world = peers
+        n = self._round
+        self._round += 1
+        prefix = f"asva/graceful_shutdown/{n}"
+        store.set(f"{prefix}/{rank}", "1" if self.requested else "0")
+        got = False
+        for r in range(world):
+            key = f"{prefix}/{r}"
+            try:
+                store.wait([key], timedelta(seconds=self.agreement_timeout_s))
+            except RuntimeError as e:   # DistStoreError: the wait timed out
+                raise TimeoutError(
+                    f"shutdown agreement round {n}: rank {r} did not "
+                    f"publish its flag within {self.agreement_timeout_s}s — "
+                    "peer dead or wedged; aborting instead of hanging"
+                ) from e
+            got = got or store.get(key) == b"1"
+        # this rank's key from two rounds back is dead: a rank in round n has
+        # read all of round n - 1, which every rank set only after reading
+        # all of round n - 2
+        if n >= 2:
+            store.delete_key(f"asva/graceful_shutdown/{n - 2}/{rank}")
+        if got:
+            self.requested = True
+        return got
 
     def restore(self):
         for sig, prev in self._prev.items():

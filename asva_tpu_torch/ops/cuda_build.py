@@ -32,11 +32,13 @@ KERNEL_TABLE = {
     "gemm": ((), {
         "asva_ln_gemm": ([_I] * 5 + [_VP] * 3 + [_F] + [_VP] * 5, _I),
         "asva_error_string": ([_I], ctypes.c_char_p)}),
-    "attn": ((), {
+    "attn": (("hopper.cuh", "wgmma.cuh"), {
         "asva_mha_fwd": ([_I] * 7 + [_F] + [_VP] * 6, _I),
         "asva_flat_attn": ([_I] * 6 + [_F] + [_VP] * 5, _I)}),
-    "attn_bwd": ((), {
-        "asva_mha_bwd": ([_I] * 7 + [_F] + [_VP] * 10, _I)}),
+    "attn_bwd": (("hopper.cuh", "wgmma.cuh"), {
+        "asva_mha_bwd": ([_I] * 7 + [_F] + [_VP] * 10, _I),
+        "asva_mha_bwd_split": ([_I] * 7 + [_F] + [_VP] * 9 + [_I, _VP, _VP],
+                               _I)}),
     "mix": ((), {
         "asva_ff_mix": ([_I] * 5 + [_VP] * 4 + [_I] * 3 + [_VP] * 3, _I)}),
     "attn_variants": (("attn_tile.cuh",), {

@@ -15,7 +15,9 @@ Pallas body casts to x.dtype:
   B4 mha_fwd         (pallas _mha_fwd_flat)   = K-attn that also writes the
                                                 per-head log-sum-exp
   B5 mha_bwd         (pallas _mha_bwd_flat)   = flash backward: dQ kernel +
-                                                dK/dV kernel
+                                                dK/dV kernel (+ a sum of its
+                                                query-range partials when K/V
+                                                are few: `dkv_split`)
   B7 fused_ff_mix    (pallas _ff_mix_flat)    = `csrc/mix.cu` K-mix: one
                                                 product over [head|prev|curr]
                                                 with y + bias in the epilogue
@@ -289,6 +291,22 @@ def mha_fwd(q, k, v, num_heads: int, kv_len: Optional[int], scale: float):
     return out
 
 
+def dkv_split(g: int, m: int, sk: int, num_heads: int, d: int,
+              sms: int) -> int:
+    """How many query ranges B5's bf16 dK/dV kernel splits into: 1 when its
+    grid (a block per 128 K/V rows, or 64 when Sk <= 64, per head-dim
+    slice, head and group) fills at least half the SMs, else enough ranges
+    for one block per SM (its registers allow one), at most one per 64-row
+    query tile.  Few K/V rows (77 text tokens, the 16x16 and 8x8 levels at
+    batch 4) make the small grids."""
+    dp = -(-d // 16) * 16
+    rows = 64 if sk <= 64 else 128
+    blocks = -(-sk // rows) * (2 if dp > 96 else 1) * num_heads * g
+    if 2 * blocks >= sms:
+        return 1
+    return max(1, min(-(-m // 64), -(-sms // blocks)))
+
+
 def mha_bwd(q, k, v, do, lse, dd, num_heads: int, kv_len: Optional[int],
             scale: float, need_dkv: bool = True):
     """B5: -> (dq, dk, dv) in the dtypes of (q, k, v); dk and dv are None
@@ -306,11 +324,18 @@ def mha_bwd(q, k, v, do, lse, dd, num_heads: int, kv_len: Optional[int],
     dq = torch.empty_like(q)
     dk = torch.empty_like(k) if need_dkv else None
     dv = torch.empty_like(v) if need_dkv else None
+    nsplit, ws = 1, None
+    if need_dkv and q.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        nsplit = dkv_split(g, m, sk, num_heads, d, sms)
+        if nsplit > 1:   # fp32 partial dK/dV of each query range
+            ws = torch.empty((2, nsplit) + tuple(k.shape),
+                             dtype=torch.float32, device=q.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    rc = lib.attn_bwd.asva_mha_bwd(
+    rc = lib.attn_bwd.asva_mha_bwd_split(
         _DTYPES[q.dtype], g, m, sk, kv_len, num_heads, d, float(scale),
         ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse), ptr(dd), ptr(dq), ptr(dk),
-        ptr(dv), _stream(q))
+        ptr(dv), nsplit, ptr(ws), _stream(q))
     _raise_on(lib, rc, "attention backward")
     LAUNCHES["B5"] += 1
     return dq, dk, dv

@@ -11,7 +11,8 @@ its own (`csrc/attn_variants.cu`, `csrc/attn_grouped.cu`,
        out-projection, residual) in ONE launch, in ten variants of softmax
        arithmetic and schedule (`VARIANTS`);
   T2f  the flash forward with `group` heads per block, their logits started
-       before any softmax; o and lse equal B4's bit for bit;
+       before any softmax; o and lse equal across groups bit for bit and
+       B4's within rounding;
   T2b  the flash backward as one kernel of five products: dK/dV carried in
        registers over the query tiles, dQ added into an fp32 buffer with
        atomics and cast once.

@@ -1,9 +1,14 @@
 """Model construction for the port (counterpart of asva_tpu/runtime.py).
 
 Builders create the full-size modules with seeded random parameters drawn
-from an explicit `torch.Generator` on the target device.  No released
-weights ship with the repository; the modules use the reference's torch key
-space, so such weights load later with `load_state_dict(strict=True)`.
+from an explicit `torch.Generator` on the target device, then load weights
+when they are given (`weights_dir`): a module directory in the reference's
+layout (`diffusion_pytorch_model.*`, `pytorch_model.*`, `model.safetensors`),
+a weights file, or one of the port's own exports (`CheckpointManager` writes
+`checkpoint-N/modules/<name>.pt`; `<dir>/<name>` finds `<dir>/<name>.pt`).
+The modules use the reference's torch key space, so such weights load
+strictly; a missing path keeps the seeded init with a warning, as in
+asva_tpu.  No released weights ship with the repository.
 
 Every `build_*` function and `load_animation_pipeline` runs on the CUDA card
 unless the caller passes device="cpu".
@@ -20,11 +25,13 @@ import json
 import logging
 import math
 import os
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
+from .convert import load_exported
 from .diffusion.schedules import DiffusionSchedule
 from .models.avsync import AVSyncClassifier
 from .models.clip_text import CLIPTextConfig, CLIPTextModel
@@ -33,6 +40,7 @@ from .models.imagebind_audio import ImageBindAudioConfig, SegmaskAudioEncoder
 from .models.unet3d import AudioUNet3D, UNet3DConfig
 from .models.vae import AutoencoderKL, VAEConfig
 from .pipelines.animation import AnimationPipeline
+from .training.optim import TRAINABLE_SEGMENTS
 
 log = logging.getLogger("asva_tpu_torch")
 
@@ -97,42 +105,62 @@ _RELU_GAIN = math.sqrt(2.0)
 
 
 def _build(factory, device, dtype, seed: int, randomize_all: bool,
-           train: bool = False, gain: float = 1.0):
+           train: bool = False, gain: float = 1.0,
+           load: Optional[Callable[[nn.Module], None]] = None):
+    """Seeded init, then `load` (weights, before the cast to `dtype`, so a
+    bf16 build holds the file's values rounded once), then the cast."""
     with torch.device("meta"):
         module = factory()
     module = module.to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
     init_parameters_(module, gen, randomize_all, gain)
+    if load is not None:
+        load(module)
     if train:
         return module.train()
     return module.to(dtype).eval().requires_grad_(False)
 
 
+def _weights(weights_dir: Optional[str], label: str, graft: bool = False):
+    """The `load` step of `_build` for `weights_dir` (None: no step)."""
+    if not weights_dir:
+        return None
+    return lambda module: load_weights(module, weights_dir, label, graft)
+
+
 def build_unet(config: UNet3DConfig = UNet3DConfig(), device="cuda",
                dtype=torch.bfloat16, seed: int = 0,
-               randomize_all: bool = False,
-               train: bool = False) -> AudioUNet3D:
+               randomize_all: bool = False, train: bool = False,
+               weights_dir: Optional[str] = None) -> AudioUNet3D:
     """train=True: fp32 parameters that all require grad, `dtype` as the
     compute dtype, train mode; the values are those of the inference build
-    before its cast to `dtype`."""
+    before its cast to `dtype`.  `weights_dir` may hold a trained 3D UNet
+    or 2D SD1.5 weights: the `from_pretrained_2d` graft, where the
+    `_temp`/`_audio` parameters absent from the file keep their seeded
+    (zero-init) values (asva_tpu/runtime.py:89-91)."""
     return _build(lambda: AudioUNet3D(config, compute_dtype=dtype), device,
-                  dtype, seed, randomize_all, train)
+                  dtype, seed, randomize_all, train,
+                  load=_weights(weights_dir, "unet", graft=True))
 
 
 def build_vae(config: VAEConfig = VAEConfig(), device="cuda",
               dtype=torch.bfloat16, seed: int = 1,
-              randomize_all: bool = False) -> AutoencoderKL:
+              randomize_all: bool = False,
+              weights_dir: Optional[str] = None) -> AutoencoderKL:
     return _build(lambda: AutoencoderKL(config), device, dtype, seed,
-                  randomize_all)
+                  randomize_all, load=_weights(weights_dir, "vae"))
 
 
 def build_audio_encoder(n_segment: int = 12,
                         config: Optional[ImageBindAudioConfig] = None,
                         device="cuda", dtype=torch.bfloat16, seed: int = 2,
-                        randomize_all: bool = False) -> SegmaskAudioEncoder:
+                        randomize_all: bool = False,
+                        weights_dir: Optional[str] = None
+                        ) -> SegmaskAudioEncoder:
     cfg = config or ImageBindAudioConfig()
     return _build(lambda: SegmaskAudioEncoder(cfg, n_segment), device, dtype,
-                  seed, randomize_all)
+                  seed, randomize_all,
+                  load=_weights(weights_dir, "audio_encoder"))
 
 
 def _find_weights(path: str) -> Optional[str]:
@@ -147,6 +175,67 @@ def _find_weights(path: str) -> Optional[str]:
         if os.path.isfile(p):
             return p
     return None
+
+
+_ORBAX_MARKERS = {"_METADATA", "manifest.ocdbt", "_CHECKPOINT_METADATA", "d",
+                  "ocdbt.process_0"}
+
+
+def resolve_weights(weights_dir: str) -> Optional[str]:
+    """The file that holds a module's weights: `weights_dir` itself when it
+    is a file, the reference layout's file inside it when it is a
+    directory, else the port's own export `<weights_dir>.pt`; None when
+    there is none.  An orbax directory (asva_tpu's own module exports)
+    raises ValueError: the port reads torch state dicts only."""
+    if os.path.isdir(weights_dir) and _ORBAX_MARKERS & set(
+            os.listdir(weights_dir)):
+        raise ValueError(
+            f"{weights_dir} is an orbax checkpoint of asva_tpu, which the "
+            "port cannot read: export it to a torch state dict first with "
+            "asva_tpu/convert/jax_to_torch.py export_state_dict(params, "
+            "<the module's key map>, to_torch=True) and torch.save the "
+            "result as <module>.pt or <dir>/pytorch_model.bin")
+    path = _find_weights(weights_dir)
+    if path is None and os.path.isfile(weights_dir.rstrip(os.sep) + ".pt"):
+        path = weights_dir.rstrip(os.sep) + ".pt"
+    return path
+
+
+def _graft_keys(module: nn.Module):
+    """State-dict keys of the temporal and audio layers, which a 2D SD1.5
+    UNet file does not have."""
+    return {k for k in module.state_dict()
+            if TRAINABLE_SEGMENTS & set(k.split("."))}
+
+
+def load_weights(module: nn.Module, weights_dir: str, label: str,
+                 graft: bool = False) -> None:
+    """Load the weights that `weights_dir` names into `module`, strictly.
+    With `graft` (the UNet) a file may instead lack exactly the
+    `_temp`/`_audio` keys, which keep the module's values; any other
+    missing key, or any unexpected one, raises.  A path that holds no
+    weights keeps the module as it is, with a warning."""
+    path = resolve_weights(weights_dir)
+    if path is None:
+        log.warning("%s: no weights under %s — seeded random init", label,
+                    weights_dir)
+        return
+    state = load_torch_state(path)
+    strict = True
+    if graft:
+        own = set(module.state_dict())
+        missing, unexpected = own - set(state), set(state) - own
+        if unexpected or (missing and missing != _graft_keys(module)):
+            raise RuntimeError(
+                f"{label}: {path} is neither the whole module nor its 2D "
+                f"part: missing {sorted(missing)[:8]}, unexpected "
+                f"{sorted(unexpected)[:8]}")
+        strict = not missing
+        if missing:
+            log.info("%s: 2D weights from %s; %d temporal/audio tensors keep "
+                     "their init", label, path, len(missing))
+    load_exported(module, state, strict=strict)
+    log.info("%s: loaded %s", label, path)
 
 
 def load_torch_state(path: str) -> Dict[str, torch.Tensor]:
@@ -190,25 +279,34 @@ def build_avsync_classifier(weights_dirs=None, device="cuda",
     or with `train=True` in training mode with fp32 parameters that require
     grad (`dtype` is then the trainer's business: pass it as
     `SyncContrastiveTrainer(compute_dtype=...)`).  `weights_dirs`:
-    {'audio_encoder': dir, 'video_encoder': dir, 'head': dir} (the
-    reference's per-module exports, already in this key space) or the
-    directory that holds the three; a module whose weights are missing keeps
-    its random init, with a warning."""
-    model = _build(AVSyncClassifier, device, dtype, seed, randomize_all,
-                   train=train, gain=_RELU_GAIN)
+    {'audio_encoder': path, 'video_encoder': path, 'head': path} (each a
+    module directory in the reference's layout, a file, or the port's export
+    `<path>.pt`) or one directory that holds the three, as directories,
+    as `<module>.pt`, or under `modules/` (a `CheckpointManager` step).  A
+    module whose weights are missing keeps its random init, with a
+    warning."""
     if isinstance(weights_dirs, str):
-        weights_dirs = {m: os.path.join(weights_dirs, m)
-                        for m in ("audio_encoder", "video_encoder", "head")}
+        root = weights_dirs
+        weights_dirs = {}
+        for mod in ("audio_encoder", "video_encoder", "head"):
+            path = os.path.join(root, mod)
+            if resolve_weights(path) is None:
+                path = os.path.join(root, "modules", mod)
+            weights_dirs[mod] = path
+    files = {}
     for mod, d in (weights_dirs or {}).items():
-        path = _find_weights(d)
-        if path is None:
+        files[mod] = resolve_weights(d)
+        if files[mod] is None:
+            del files[mod]
             log.warning("avsync: no weights found for module %r under %s — "
                         "that module keeps RANDOM init (scores meaningless "
                         "for metrics)", mod, d)
-            continue
-        getattr(model, mod).load_state_dict(load_torch_state(path),
-                                            strict=True)
-    return model
+
+    def load(model):
+        for mod, path in files.items():
+            load_exported(getattr(model, mod), load_torch_state(path))
+    return _build(AVSyncClassifier, device, dtype, seed, randomize_all,
+                  train=train, gain=_RELU_GAIN, load=load if files else None)
 
 
 _I3D_ALIASES = ((".batch3d.", ".bn."), (".b1.0.", ".b1a."),
@@ -272,18 +370,55 @@ def load_module_configs(checkpoint_modules_dir: Optional[str]):
         return json.load(f)
 
 
+def load_null_text_encoding(path: Optional[str],
+                            device="cuda") -> Optional[torch.Tensor]:
+    """The (1, 77, 768) fp32 encoding of the empty prompt on `device`, from
+    the reference's `.pt` or a `.npy` file; either spelling of the path is
+    accepted (asva_tpu/runtime.py:223-238).  None when neither file
+    exists."""
+    if path and not os.path.isfile(path):
+        for alt in (path[:-3] + ".npy" if path.endswith(".pt") else None,
+                    path[:-4] + ".pt" if path.endswith(".npy") else None):
+            if alt and os.path.isfile(alt):
+                path = alt
+                break
+    if not (path and os.path.isfile(path)):
+        return None
+    if path.endswith(".npy"):
+        enc = torch.from_numpy(np.load(path))
+    else:
+        enc = torch.load(path, map_location="cpu", weights_only=True)
+    return enc.float().reshape(1, 77, 768).to(device)
+
+
 def load_animation_pipeline(
         checkpoint_modules_dir: Optional[str] = None,
+        sd_root: Optional[str] = None,
+        null_text_encoding_path: Optional[str] = None,
         n_segment: int = 12, device="cuda", dtype=torch.bfloat16,
         unet_config: Optional[UNet3DConfig] = None,
         vae_config: Optional[VAEConfig] = None,
         seed: int = 0, randomize_all: bool = False,
         null_text_encoding: Optional[torch.Tensor] = None,
 ) -> AnimationPipeline:
-    """The generation pipeline with seeded random weights.  unet_config
-    None: the architecture recorded in the checkpoint's
-    modules_config.json when present, else the full-size default."""
-    mod_cfgs = load_module_configs(checkpoint_modules_dir) or {}
+    """The generation pipeline, with the directory logic of
+    asva_tpu/runtime.py:280-303: the UNet from `<checkpoint_modules_dir>/
+    unet` (a trained export: the port's `unet.pt` or a reference-layout
+    directory), else from `<sd_root>/unet` (2D SD1.5 weights, grafted); the
+    audio tower from `<checkpoint_modules_dir>/audio_encoder`; the VAE from
+    `<sd_root>/vae`; the null text encoding from `null_text_encoding_path`
+    unless the tensor `null_text_encoding` is given.  A module without
+    weights keeps its seeded random init (with a warning when a path was
+    given).  unet_config None: the architecture recorded in the
+    checkpoint's modules_config.json when present, else the full-size
+    default.  sd_root and null_text_encoding_path default to None: no such
+    files ship with the repository."""
+    mods = checkpoint_modules_dir
+    unet_dir = (os.path.join(mods, "unet") if mods else
+                (os.path.join(sd_root, "unet") if sd_root else None))
+    audio_dir = os.path.join(mods, "audio_encoder") if mods else None
+    vae_dir = os.path.join(sd_root, "vae") if sd_root else None
+    mod_cfgs = load_module_configs(mods) or {}
     audio_config = None
     if unet_config is None and "unet" in mod_cfgs:
         unet_config = _config_from_dict(UNet3DConfig, mod_cfgs["unet"])
@@ -291,11 +426,14 @@ def load_animation_pipeline(
         audio_config = _config_from_dict(ImageBindAudioConfig,
                                          mod_cfgs["audio_encoder"])
     unet = build_unet(unet_config or UNet3DConfig(), device, dtype, seed,
-                      randomize_all)
+                      randomize_all, weights_dir=unet_dir)
     vae = build_vae(vae_config or VAEConfig(), device, dtype, seed + 1,
-                    randomize_all)
+                    randomize_all, weights_dir=vae_dir)
     audio = build_audio_encoder(n_segment, audio_config, device, dtype,
-                                seed + 2, randomize_all)
+                                seed + 2, randomize_all, weights_dir=audio_dir)
+    if null_text_encoding is None:
+        null_text_encoding = load_null_text_encoding(null_text_encoding_path,
+                                                     device)
     return AnimationPipeline(unet=unet, vae=vae, audio_encoder=audio,
                              schedule=DiffusionSchedule(),
                              null_text_encoding=null_text_encoding)

@@ -5,17 +5,23 @@ B4 `fused.mha_fwd` and B5 `fused.mha_bwd`.  This tool measures, at the real
 training shapes (batch 4, 12 frames):
 
   fwd  T2f `mha_fwd_grouped`: `group` heads per block, all their logits
-       started before any softmax; group 1 is B4's schedule; 1, 2, 4, H
+       started before any softmax; group 1 is B4's earlier mma.sync
+       schedule; 1, 2, 4, H
   bwd  T2b `mha_bwd_ordered`: one kernel of five products (B5 is two
        kernels and seven), in the orders
        b0 one head, the exp between its two logit products
        b1 one head, s and dO V^T started back to back before the exp
        b2 / b4 / b3  two / four / all heads' logit products first
 
-lse and dd come from the production forward.  Parity first: every forward
-variant must equal B4 bit for bit (o and lse); every backward variant must
-be within 2**-6 of max|B5| of B5's dq, dk, dv (B5 sums dq in another order),
-and dk/dv must be equal bit for bit across the backward variants.  A (group,
+T2f and T2b keep the `mma.sync` schedule of B4 and B5 as they were when the
+tool was ported (`csrc/attn_tile.cuh`); B4 and B5 now run on wgmma, with the
+softmax in base 2.  lse and dd come from the production forward.  Parity
+first: every forward group must equal group 1 bit for bit (o and lse), and
+be within 2**-6 of max|o| of B4's o and 1e-5 of max(1, max|lse|) of B4's
+lse (the JAX tool demands bit equality because both of its Pallas kernels
+share one body; here the two schedules round and sum differently); every
+backward variant must be within 2**-6 of max|B5| of B5's dq, dk, dv, and
+dk/dv must be equal bit for bit across the backward variants.  A (group,
 head dim) or (variant, head dim) without an instantiation is listed as
 UNSUPPORTED with the rule that excludes it.  Then the timing matrix, B4's
 and B5's own times first: medians of `--n` launches between CUDA events,
@@ -36,6 +42,8 @@ from .common import describe, emit, flag, max_abs_diff, seeded, time_ms
 
 DT = torch.bfloat16
 BWD_TOL = 2.0 ** -6
+FWD_TOL = 2.0 ** -6     # o against B4, times max|o|
+LSE_TOL = 1e-5          # lse against B4, times max(1, max|lse|)
 # training shapes at batch 4, 12 frames: attn1 flattens to (b, f*n, c),
 # audio cross-attention to (b*f, n, c): (tag, G, M, Sk, HD, H, kv_len)
 SHAPES = (("L0.attn1", 4, 12288, 1024, 320, 8, None),
@@ -61,6 +69,9 @@ def bench_shape(tag, g, m, sk, hdp, heads, kv_len, n, device,
           f"kv_len={kv_len} ===", flush=True)
 
     ok_fwd, ok_bwd = [], []
+    tol_o = FWD_TOL * o.float().abs().max().item()
+    tol_lse = LSE_TOL * max(1.0, lse.abs().max().item())
+    g1 = None
     for grp in dict.fromkeys((1, 2, 4, heads)):
         why = variants.t2f_supported(d, min(grp, heads)) if on_card else None
         if why:
@@ -70,12 +81,16 @@ def bench_shape(tag, g, m, sk, hdp, heads, kv_len, n, device,
             continue
         of, lf = variants.mha_fwd_grouped(q, k, v, heads, kv_len, scale,
                                           None, grp)
-        n_diff = int((of != o).sum().item() + (lf != lse).sum().item())
-        err = max(max_abs_diff(of, o), max_abs_diff(lf, lse))
+        g1 = g1 or (of, lf)
+        same = bool(torch.equal(of, g1[0]) and torch.equal(lf, g1[1]))
+        err_o, err_lse = max_abs_diff(of, o), max_abs_diff(lf, lse)
+        ok = same and err_o <= tol_o and err_lse <= tol_lse
         emit(rows, dict(kind="parity_fwd", tag=tag, group=grp, supported=True,
-                        n_differing=n_diff, err=err, ok=n_diff == 0),
-             f"  fwd g{grp}: {n_diff} entries differ from B4, max|d|="
-             f"{err:.2e} {'OK' if n_diff == 0 else 'FAIL'}")
+                        equal_to_g1=same, err_o=err_o, tol_o=tol_o,
+                        err_lse=err_lse, tol_lse=tol_lse, ok=ok),
+             f"  fwd g{grp}: {'equal to' if same else 'DIFFERS from'} g1, "
+             f"vs B4 max|d| o={err_o:.2e} (tol {tol_o:.2e}) lse="
+             f"{err_lse:.2e} (tol {tol_lse:.2e}) {'OK' if ok else 'FAIL'}")
         ok_fwd.append(grp)
     ref = fused.mha_bwd(q, k, v, do, lse, dd, heads, kv_len, scale)
     first = None

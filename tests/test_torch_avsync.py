@@ -3,6 +3,8 @@ with the weights (params and BatchNorm running statistics) carried across by
 `export_state_dict` on the whole variables dict and a strict load.  The
 nets are full width (they have no tiny config) at the smallest inputs their
 strides allow; one jitted JAX init per module fixture."""
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -133,6 +135,31 @@ def test_build_avsync_classifier_and_weight_directories(tmp_path, pair, rng):
         close(loaded.audio_encoder(mel), tm.audio_encoder(mel).numpy(), 0)
         close(loaded.video_encoder(video), model.video_encoder(video).numpy(),
               0)
+
+
+def test_build_avsync_classifier_finds_the_ports_exports(tmp_path, pair,
+                                                          rng):
+    """A directory of the port's per-module exports, `<dir>/<module>.pt`, and
+    a CheckpointManager step, `<dir>/modules/<module>.pt`: every module
+    loads the values asva_tpu's variables hold (the `pair` export), so the
+    classifier computes what the ported one computes, bit for bit."""
+    from asva_tpu_torch.training.checkpoint import CheckpointManager
+    _, _, tm = pair
+    mods = ("audio_encoder", "video_encoder", "head")
+    flat = tmp_path / "flat"
+    flat.mkdir()
+    for mod in mods:
+        torch.save(getattr(tm, mod).state_dict(), str(flat / f"{mod}.pt"))
+    mgr = CheckpointManager(str(tmp_path / "run"), checkpointing_steps=1)
+    mgr.save(3, {"step": 3},
+             modules={m: getattr(tm, m).state_dict() for m in mods})
+    mel = t(rng.standard_normal(MEL).astype(np.float32))
+    video = t(rng.standard_normal(VIDEO).astype(np.float32))
+    with torch.no_grad():
+        want = tm(mel, video)
+        for root in (str(flat), os.path.dirname(mgr.modules_dir(3))):
+            loaded = build_avsync_classifier(root, device="cpu", seed=2)
+            assert torch.equal(loaded(mel, video), want)
 
 
 @pytest.mark.slow

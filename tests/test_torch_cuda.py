@@ -8,12 +8,14 @@ JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
 
 (`--noconftest`: tests/conftest.py configures JAX.)  chip_smoke.py holds
 the kernels against their plain versions at every SD1.5 level; this file
-covers what that run does not reach: kv_len < Sk masking, ragged token
-counts that are not tile multiples, head dims 40/80/160, and the rule that a
+covers what that run does not reach: kv_len < Sk masking (for B4/B5 at
+every position of the last K/V tile), ragged token counts that are not tile
+multiples, head dims 40/80/96/160, B5's split dK/dV path for few K/V rows,
+o bit-identical with and without lse and on recompute, and the rule that a
 wrapper given an input that requires grad returns a tensor with a grad_fn;
 for the tools' kernels every variant name, group size and schedule, the
-rule that excludes an instantiation, T2f's bit equality with B4 and the
-reproducible dK/dV of T2b.
+rule that excludes an instantiation, T2f's bit equality across its groups
+and closeness to B4, and the reproducible dK/dV of T2b.
 
 Tolerances: fp32 1e-4 times max(1, max|plain|) (fp32 products; summation
 order and the online softmax differ); bf16 2**-6 times max|plain| (two bf16
@@ -181,6 +183,116 @@ def test_b5_on_card(dev, dtype, g, m, sk, heads, d, kv_len, need_dkv):
     _check(got[2], want[2], dtype)
     if kv_len is not None:
         assert not got[1][:, kv_len:].any() and not got[2][:, kv_len:].any()
+
+
+# ---------------------------------------- B4 / B5 on wgmma: the edges ---
+
+def _fwd_bwd(gen, g, m, sk, heads, d, kv_len, need_dkv=True):
+    """B4 and B5 on bf16 inputs against their plain versions; the plain B5
+    gets the kernel's own lse, as the autograd rule gives it."""
+    q, k, v = _qkv(gen, g, m, sk, heads * d, torch.bfloat16)
+    do = _r(gen, q.shape, torch.bfloat16)
+    scale = 1 / math.sqrt(d)
+    o, lse = fused.mha_fwd(q, k, v, heads, kv_len, scale)
+    o_ref, lse_ref = fused.mha_fwd_plain(q, k, v, heads, kv_len, scale)
+    _check(o, o_ref, torch.bfloat16)
+    assert (lse - lse_ref).abs().max().item() <= 2e-2
+    dd = fused._head_rowsum(do, o, heads)
+    got = fused.mha_bwd(q, k, v, do, lse, dd, heads, kv_len, scale, need_dkv)
+    want = fused.mha_bwd_plain(q, k, v, do, lse, dd, heads, kv_len, scale)
+    _check(got[0], want[0], torch.bfloat16)
+    if not need_dkv:
+        assert got[1] is None and got[2] is None
+        return
+    for a, b in zip(got[1:], want[1:]):
+        _check(a, b, torch.bfloat16)
+        if kv_len is not None:
+            assert not a[:, kv_len:].any()
+
+
+@pytest.mark.parametrize("d", [40, 96])
+def test_b4_b5_kv_len_at_every_position_of_the_last_tile(dev, d):
+    """kv_len = 64 + r for r = 1..63: the last K/V tile is masked from every
+    column on; M = 70 is no multiple of the 64-row query tile."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for r in range(1, 64):
+        _fwd_bwd(gen, 2, 70, 128, 2, d, 64 + r)
+
+
+@pytest.mark.parametrize("need_dkv", [True, False])
+@pytest.mark.parametrize("d", [40, 80, 96, 160])
+@pytest.mark.parametrize("sk,kv_len", [(25, None), (77, None), (128, 77),
+                                       (1024, None)])
+def test_b4_b5_head_dims_and_kv_lengths(dev, sk, kv_len, d, need_dkv):
+    """The SD1.5 head dims, the widest unsplit tile (96), audio (25), text
+    (77, and 77 of 128) and frame-0 (1024) K/V lengths; M = 200."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    _fwd_bwd(gen, 2, 200, sk, 2, d, kv_len, need_dkv)
+
+
+@pytest.mark.parametrize("sk,kv_len", [(130, 100), (40, None)])
+@pytest.mark.parametrize("d", [8, 24, 48, 56, 64, 104, 128, 136, 152])
+def test_b4_b5_every_head_tile(dev, d, sk, kv_len):
+    """Every padded head tile the kernels instantiate (16 to 160 in steps of
+    16; those above 96 split B5's dK/dV head dim), with three masked K/V
+    tiles or one short one."""
+    _fwd_bwd(torch.Generator(device="cuda").manual_seed(16), 2, 100, sk, 2,
+             d, kv_len)
+
+
+@pytest.mark.parametrize("g,m,sk,heads,d,kv_len", [
+    (1, 1000, 77, 2, 40, None),    # text: 4 dK/dV blocks
+    (2, 300, 25, 2, 160, None),    # audio, split head tile
+    (1, 640, 128, 1, 80, 100),     # two K/V tiles, the second masked
+])
+def test_b5_split_dkv_path(dev, g, m, sk, heads, d, kv_len):
+    """Few K/V rows: B5 splits its dK/dV kernel over query ranges and sums
+    the fp32 partials in a second pass; the result stays within tolerance
+    and repeats bit for bit."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fused.dkv_split(g, m, sk, heads, d, sms) > 1
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    _fwd_bwd(gen, g, m, sk, heads, d, kv_len)
+    q, k, v = _qkv(gen, g, m, sk, heads * d, torch.bfloat16)
+    do = _r(gen, q.shape, torch.bfloat16)
+    o, lse = fused.mha_fwd(q, k, v, heads, kv_len, 1 / math.sqrt(d))
+    dd = fused._head_rowsum(do, o, heads)
+    args = (q, k, v, do, lse, dd, heads, kv_len, 1 / math.sqrt(d))
+    first, again = fused.mha_bwd(*args), fused.mha_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("g,m,sk,heads,d,kv_len", [
+    (48, 130, 25, 2, 40, None),    # audio: 96 dK/dV blocks
+    (40, 100, 64, 2, 160, 50),     # one masked K/V tile, split head tile
+])
+def test_b5_one_warpgroup_dkv_blocks(dev, g, m, sk, heads, d, kv_len):
+    """Sk <= 64: one K/V tile a head, so B5's dK/dV blocks are one
+    warpgroup; with enough of them there is no split."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert fused.dkv_split(g, m, sk, heads, d, sms) == 1
+    _fwd_bwd(torch.Generator(device="cuda").manual_seed(15), g, m, sk, heads,
+             d, kv_len)
+
+
+@pytest.mark.parametrize("d", [40, 80, 160])
+def test_b4_o_without_lse_and_recompute_bit_identical(dev, d):
+    """o is the same bits with and without lse (generation vs training), a
+    second call (remat's recompute) repeats o and lse bit for bit, and a
+    group's rows do not depend on the other groups of the launch."""
+    from asva_tpu_torch.ops import cuda_build
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v = _qkv(gen, 3, 200, 1024, 8 * d, torch.bfloat16)
+    scale = 1 / math.sqrt(d)
+    lib = cuda_build.library()
+    o_gen, none = fused._mha_fwd_cuda(lib, q, k, v, 8, 900, scale, False)
+    o, lse = fused.mha_fwd(q, k, v, 8, 900, scale)
+    assert none is None and torch.equal(o_gen, o)
+    o2, lse2 = fused.mha_fwd(q, k, v, 8, 900, scale)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o1, lse1 = fused.mha_fwd(q[1:2].contiguous(), k[1:2].contiguous(),
+                             v[1:2].contiguous(), 8, 900, scale)
+    assert torch.equal(o1, o[1:2]) and torch.equal(lse1, lse[1:2])
 
 
 # ------------------------------------------------- gradients of wrappers ---
@@ -428,16 +540,20 @@ T2_SHAPES = [(2, 130, 128, 320, 8, 77),    # d = 40, masked past kv_len
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("g,m,sk,c,heads,kv_len", T2_SHAPES)
 def test_t2f_on_card(dev, dtype, g, m, sk, c, heads, kv_len):
-    """T2f: every supported group size within tolerance of the plain version
-    and bit-equal to B4 (o and lse); groups 1 and 2 are supported at every
-    head dim."""
+    """T2f: every supported group size within tolerance of the plain
+    version, bit-equal to group 1 (o and lse), and within 2**-6 max|o| (o)
+    and 1e-5 max(1, max|lse|) (lse) of B4, whose wgmma schedule sums and
+    rounds in another order than T2f's mma.sync one; groups 1 and 2 are
+    supported at every head dim."""
     from asva_tpu_torch.ops import variants
     gen = torch.Generator(device="cuda").manual_seed(9)
     q, k, v = (_r(gen, s, dtype) for s in ((g, m, c), (g, sk, c), (g, sk, c)))
     scale = 1.0 / math.sqrt(c // heads)
     o4, lse4 = fused.mha_fwd(q, k, v, heads, kv_len, scale)
     o_p, lse_p = fused.mha_fwd_plain(q, k, v, heads, kv_len, scale)
-    ran = []
+    tol_o = 2.0 ** -6 * o4.float().abs().max().item()
+    tol_lse = 1e-5 * max(1.0, lse4.abs().max().item())
+    ran, g1 = [], None
     for group in (1, 2, 4, heads):
         if variants.t2f_supported(c // heads, group):
             with pytest.raises(ValueError):
@@ -450,7 +566,10 @@ def test_t2f_on_card(dev, dtype, g, m, sk, c, heads, kv_len):
         assert fused.LAUNCHES["T2F"] == before + 1
         _check(o, o_p, dtype)
         _check(lse, lse_p, torch.float32)
-        assert torch.equal(o, o4) and torch.equal(lse, lse4), group
+        g1 = g1 or (o, lse)
+        assert torch.equal(o, g1[0]) and torch.equal(lse, g1[1]), group
+        assert (o.float() - o4.float()).abs().max().item() <= tol_o
+        assert (lse - lse4).abs().max().item() <= tol_lse
         ran.append(group)
     assert ran[:2] == [1, 2]
 

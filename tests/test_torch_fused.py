@@ -224,6 +224,21 @@ def test_b5_plain_matches_pallas_interpret(rng, kv_len):
     assert torch.equal(dq_only[0], got[0])
 
 
+@pytest.mark.parametrize("g,m,sk,heads,d,want", [
+    (4, 12288, 1024, 8, 40, 1),   # training attn1 at 32x32: 256 blocks
+    (48, 1024, 25, 8, 40, 1),     # audio, 64-row blocks: 384 blocks
+    (4, 12288, 77, 8, 40, 5),     # text: 32 blocks
+    (4, 3072, 256, 8, 80, 3),     # 16x16 attn1: 64 blocks
+    (4, 768, 64, 8, 160, 3),      # 8x8 attn1, split head tile: 64 blocks
+    (1, 128, 77, 2, 40, 2),       # capped at one range per query tile
+])
+def test_b5_dkv_split_fills_the_sms(g, m, sk, heads, d, want):
+    """B5's dK/dV kernel is split over query ranges only when its grid
+    would fill less than half of the 132 SMs of an H100, into enough ranges
+    for one block an SM, never more than one per 64-row query tile."""
+    assert fused.dkv_split(g, m, sk, heads, d, 132) == want
+
+
 def test_mha_kvshared_gradients_match_jax(rng):
     """The standalone differentiable attention (forward B4, backward dd +
     B5) against jax.grad of pallas mha_kvshared in interpret mode, 1e-4."""

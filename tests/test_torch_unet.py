@@ -301,6 +301,41 @@ def test_tiny_unet_both_variants(tiny_unet, fuse):
     close(got, want, 5e-5)
 
 
+def test_build_unet_loads_a_reference_directory_like_asva_tpu(tiny_unet,
+                                                              tmp_path):
+    """A diffusers-layout directory written from the JAX parameters: the
+    port's build_unet(weights_dir=...) computes the JAX UNet's function
+    (1e-4 max(1, |ref|)), in fp32 and, held to its own fp32 load, in bf16
+    as weights.to(bf16); asva_tpu's loader (`runtime._maybe_convert`, what
+    its build_unet runs after its init) reads the same file back into the
+    parameters it was written from."""
+    import os
+    from asva_tpu import runtime as jrt
+    from asva_tpu.convert.jax_to_torch import export_state_dict
+    from asva_tpu.convert.torch_to_jax import unet_key_map
+    from asva_tpu_torch import runtime
+    from asva_tpu_torch.models.unet3d import UNet3DConfig as TC
+    _, p, _, (x, ts, text, aud), want = tiny_unet
+    d = tmp_path / "unet"
+    d.mkdir()
+    torch.save(export_state_dict(p, unet_key_map, to_torch=True),
+               str(d / "diffusion_pytorch_model.bin"))
+    zeros = jax.tree_util.tree_map(jnp.zeros_like, p)
+    back = jrt._maybe_convert(zeros, str(d), unet_key_map, "unet")
+    assert all(np.array_equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(p)))
+    tm = runtime.build_unet(TC.tiny(), device="cpu", dtype=torch.float32,
+                            weights_dir=str(d))
+    idx = segment_token_indices(4, (12, 19))
+    with torch.no_grad():
+        got = tm(*map(t, (x, ts, text, aud)), audio_token_indices=idx)
+    close(got, want, 1e-4 * max(1.0, float(np.abs(want).max())))
+    bf = runtime.build_unet(TC.tiny(), device="cpu", dtype=torch.bfloat16,
+                            weights_dir=os.path.join(str(d), ""))
+    assert all(torch.equal(a, b.to(torch.bfloat16)) for a, b in
+               zip(bf.state_dict().values(), tm.state_dict().values()))
+
+
 def test_tiny_unet_mask_input_equals_gather(tiny_unet):
     """A boolean audio_mask input (JAX masked attention) gives the same
     output as the port's token gather built from it, 5e-5."""

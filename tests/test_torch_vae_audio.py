@@ -74,6 +74,46 @@ def test_load_exported_is_strict(vae_pair):
         load_exported(tv.AutoencoderKL(tv.VAEConfig.tiny()), state)
 
 
+def test_builders_load_reference_directories_like_asva_tpu(vae_pair, rng,
+                                                           tmp_path):
+    """Reference-layout directories written from JAX parameters: the port's
+    build_vae(weights_dir=...) holds the file's tensors (as (o, i, 1, 1)
+    where the file's 1x1 convolutions are (o, i)); asva_tpu's
+    build_audio_encoder and the port's on the same directory compute the
+    same function at a tiny config, 1e-4 max(1, |ref|)."""
+    from asva_tpu import runtime as jrt
+    from asva_tpu.convert.jax_to_torch import export_state_dict
+    from asva_tpu_torch import runtime
+    _, p, _ = vae_pair
+    state = export_state_dict(p, vae_key_map, to_torch=True)
+    (tmp_path / "vae").mkdir()
+    torch.save(state, str(tmp_path / "vae" / "diffusion_pytorch_model.bin"))
+    got = runtime.build_vae(tv.VAEConfig.tiny(), device="cpu",
+                            dtype=torch.float32,
+                            weights_dir=str(tmp_path / "vae")).state_dict()
+    assert set(got) == set(state)
+    for k, v in state.items():
+        assert torch.equal(got[k], v.reshape(got[k].shape)), k
+
+    _, ap = jrt.build_audio_encoder(4, jnp.float32,
+                                    config=ja.ImageBindAudioConfig.tiny())
+    ap = randomize(ap, rng)
+    (tmp_path / "audio").mkdir()
+    torch.save(export_state_dict(ap, imagebind_audio_key_map, to_torch=True),
+               str(tmp_path / "audio" / "pytorch_model.bin"))
+    jm, jp = jrt.build_audio_encoder(4, jnp.float32, str(tmp_path / "audio"),
+                                     config=ja.ImageBindAudioConfig.tiny())
+    tm = runtime.build_audio_encoder(4, ta.ImageBindAudioConfig.tiny(),
+                                     device="cpu", dtype=torch.float32,
+                                     weights_dir=str(tmp_path / "audio"))
+    mel = rng.standard_normal((1, 128, 204, 1)).astype(np.float32)
+    want = jax.jit(jm.apply)(jp, mel)
+    with torch.no_grad():
+        got = tm(t(mel))
+    for a, b in zip(got[:2], want[:2]):
+        close(a, b, 1e-4 * max(1.0, float(np.abs(np.asarray(b)).max())))
+
+
 @pytest.mark.parametrize("normalize", [False, True])
 def test_segmask_audio_encoder(rng, normalize):
     """Tiny ImageBind audio tower with bias_k/v, final LayerNorm and the
