@@ -1,5 +1,5 @@
 """Write `wgmma.cuh`: the warpgroup MMA wrappers that the attention kernels
-use.  Inline PTX has to name every accumulator register, so each width N is
+and K-gemm use.  Inline PTX has to name every accumulator register, so each width N is
 spelled out once here instead of by hand.  Run after changing the widths:
 
     python3 asva_tpu_torch/csrc/gen_wgmma.py
@@ -9,7 +9,10 @@ import os
 # widths of the A-from-registers form: every head tile 16..160 and the dK/dV
 # head slices of the tiles wider than 96 (56, 64, 72, 80)
 RS_WIDTHS = (16, 32, 48, 56, 64, 72, 80, 96, 112, 128, 144, 160)
-SS_WIDTHS = (64,)
+# widths of the both-from-shared-memory form: the 64-key S tiles of the
+# attention kernels, and K-gemm's N tiles (160 for every SD1.5 width, 80 for
+# its GEGLU panels, 64 for the other multiples of 64)
+SS_WIDTHS = (64, 80, 160)
 
 HEAD = """\
 // Generated by gen_wgmma.py: warpgroup matrix products for sm_90a.
@@ -68,13 +71,17 @@ def spec(n):
     return "\n".join(lines) + "\n"
 
 
-def main():
+def render() -> str:
+    """The text of wgmma.cuh."""
     widths = sorted(set(RS_WIDTHS) | set(SS_WIDTHS))
-    text = HEAD + "\n" + "\n".join(spec(n) for n in widths)
+    return HEAD + "\n" + "\n".join(spec(n) for n in widths)
+
+
+def main():
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "wgmma.cuh")
     with open(path, "w") as f:
-        f.write(text)
+        f.write(render())
 
 
 if __name__ == "__main__":

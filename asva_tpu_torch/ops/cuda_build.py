@@ -29,7 +29,7 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # One row per library: source name -> (headers it includes, {C entry point:
 # (argtypes, restype)}).  A new kernel is one row (or one entry of a row).
 KERNEL_TABLE = {
-    "gemm": ((), {
+    "gemm": (("hopper.cuh", "wgmma.cuh"), {
         "asva_ln_gemm": ([_I] * 5 + [_VP] * 3 + [_F] + [_VP] * 5, _I),
         "asva_error_string": ([_I], ctypes.c_char_p)}),
     "attn": (("hopper.cuh", "wgmma.cuh"), {

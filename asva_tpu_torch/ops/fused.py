@@ -55,9 +55,16 @@ from .norms import layer_norm_rows
 
 # per-wrapper count of kernel launches (CUDA path only)
 LAUNCHES = {"B1": 0, "B2": 0, "B3": 0, "B4": 0, "B5": 0, "B6": 0, "B7": 0,
-            "T1": 0, "T2F": 0, "T2B": 0}    # T*: the tools' kernels, variants.py
+            "T1": 0, "T2F": 0, "T2B": 0,    # T*: the tools' kernels, variants.py
+            # K-gemm, by the launch it makes inside B1/B2 (q, out) and B3
+            "KG.q": 0, "KG.out": 0, "KG.ff1": 0, "KG.ff2": 0}
 
 _EPI_STORE, _EPI_GEGLU, _EPI_BIAS_RES = 0, 1, 2
+# the four K-gemm launches of the sub-layers and their epilogues: the q
+# projection (after LN), the output projection (+ bias + residual), the LN +
+# GEGLU product and the FF's second product (+ bias + residual)
+_FORMS = {"q": _EPI_STORE, "out": _EPI_BIAS_RES, "ff1": _EPI_GEGLU,
+          "ff2": _EPI_BIAS_RES}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -80,6 +87,25 @@ def ln_geglu_plain(x, ls, lb, wi, bi, wo, bo, eps: float) -> torch.Tensor:
     h = (value * torch.nn.functional.gelu(gate)).to(x.dtype)
     y = h.float() @ wo.to(x.dtype).float().t()
     return x + (y + bo.float()).to(x.dtype)
+
+
+def ln_gemm_plain(form: str, a, w, bias=None, res=None, ln=None):
+    """K-gemm plain: a (M, K) -> (M, N), the product with W (N, K) in
+    Linear layout after an optional LayerNorm, `ln` = (weight, bias, eps),
+    and the epilogue of `form` (`_FORMS`): "q" casts a @ W^T; "ff1" takes W
+    as [value; gate] (2N, K) and returns (v + b) * gelu_erf(g + b); "out"
+    and "ff2" return res + (a @ W^T + bias).  Products in a.dtype with fp32
+    accumulation, the epilogue in fp32, one cast (the kernel's arithmetic)."""
+    x = a if ln is None else _ln(a, *ln)
+    s = x.float() @ w.to(a.dtype).float().t()
+    epi = _FORMS[form]
+    if epi == _EPI_STORE:
+        return s.to(a.dtype)
+    s = s + bias.to(a.dtype).float()
+    if epi == _EPI_GEGLU:
+        n = w.shape[0] // 2
+        return (s[:, :n] * torch.nn.functional.gelu(s[:, n:])).to(a.dtype)
+    return (res.float() + s).to(a.dtype)
 
 
 def _heads(t, num_heads: int):
@@ -238,18 +264,71 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _gemm(lib, epi, a, lnw, lnb, eps, w, bias, res, out):
+def gemm_supported(n: int, k: int, dtype) -> Optional[str]:
+    """None when K-gemm takes an output width n and contraction k in
+    `dtype`, else why not.  bf16: 64-deep K tiles and N tiles of 160 (every
+    SD1.5 width; GEGLU's are 80) or 64 (`tile_n` in csrc/gemm.cu); fp32:
+    16-deep K tiles."""
+    if dtype == torch.bfloat16:
+        if k % 64:
+            return f"K-gemm takes K a multiple of 64 in bf16, got {k}"
+        if n % 160 and n % 64:
+            return f"K-gemm takes N a multiple of 160 or 64 in bf16, got {n}"
+        return None
+    if k % 16:
+        return f"K-gemm takes K a multiple of 16 in {dtype}, got {k}"
+    return None
+
+
+def _gemm(lib, form, a, lnw, lnb, eps, w, bias, res, out):
     m, k = a.shape
     n = out.shape[1]
-    tile_k = 32 if a.dtype == torch.bfloat16 else 16
-    if k % tile_k:
-        raise ValueError(f"K-gemm takes a contraction dim that is a multiple "
-                         f"of {tile_k} for {a.dtype}, got {k}")
+    why = gemm_supported(n, k, a.dtype)
+    if why:
+        raise ValueError(why)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     rc = lib.gemm.asva_ln_gemm(
-        _DTYPES[a.dtype], epi, m, n, k, ptr(a), ptr(lnw), ptr(lnb),
+        _DTYPES[a.dtype], _FORMS[form], m, n, k, ptr(a), ptr(lnw), ptr(lnb),
         float(eps), ptr(w), ptr(bias), ptr(res), ptr(out), _stream(a))
     _raise_on(lib, rc, "K-gemm")
+    LAUNCHES[f"KG.{form}"] += 1
+
+
+def ln_gemm(form: str, a, w, bias=None, res=None, ln=None) -> torch.Tensor:
+    """K-gemm alone, one launch (`ln_gemm_plain` says what it computes; the
+    plain version runs for CPU tensors).  Forward only: it has no autograd
+    rule, so inputs that require grad are refused under grad mode."""
+    if form not in _FORMS:
+        raise ValueError(f"form {form!r} not in {sorted(_FORMS)}")
+    if a.device.type == "cpu":
+        return ln_gemm_plain(form, a, w, bias, res, ln)
+    params = [t for t in (w, bias, res) + tuple(ln or ())[:2]
+              if t is not None]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in [a] + params):
+        raise ValueError("ln_gemm has no autograd rule: call it under "
+                         "torch.no_grad() or use the fused wrappers")
+    lib = _prepare(a, *params)
+    m, k = a.shape
+    epi = _FORMS[form]
+    n = w.shape[0] // 2 if epi == _EPI_GEGLU else w.shape[0]
+    _check_shape("w", w, ((2 if epi == _EPI_GEGLU else 1) * n, k))
+    if epi != _EPI_STORE:
+        if bias is None:
+            raise ValueError(f"form {form!r} needs a bias")
+        _check_shape("bias", bias, (w.shape[0],))
+    if epi == _EPI_BIAS_RES:
+        if res is None:
+            raise ValueError(f"form {form!r} needs a residual")
+        _check_shape("res", res, (m, n))
+    lnw, lnb, eps = ln if ln is not None else (None, None, 0.0)
+    if ln is not None:
+        _check_shape("ln weight", lnw, (k,))
+        _check_shape("ln bias", lnb, (k,))
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    _gemm(lib, form, a, lnw, lnb, eps, w,
+          bias if epi != _EPI_STORE else None,
+          res if epi == _EPI_BIAS_RES else None, out)
+    return out
 
 
 def _attn_geometry(q, k, v, num_heads: int, kv_len: Optional[int]):
@@ -357,12 +436,12 @@ def _ln_attn_cuda(lib, x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len,
     _check_sublayer(x, ls, lb, wq, wo, bo, k, v)
     _attn_geometry(x, k, v, num_heads, kv_len)   # before the first launch
     q = torch.empty_like(x)
-    _gemm(lib, _EPI_STORE, x.view(g * m, c), ls, lb, eps, wq, None, None,
+    _gemm(lib, "q", x.view(g * m, c), ls, lb, eps, wq, None, None,
           q.view(g * m, c))
     o, lse = _mha_fwd_cuda(lib, q, k, v, num_heads, kv_len,
                            1.0 / math.sqrt(c // num_heads), with_lse)
     out = torch.empty_like(x)
-    _gemm(lib, _EPI_BIAS_RES, o.view(g * m, c), None, None, 0.0, wo, bo,
+    _gemm(lib, "out", o.view(g * m, c), None, None, 0.0, wo, bo,
           x.view(g * m, c), out.view(g * m, c))
     return out, o, lse
 
@@ -378,9 +457,9 @@ def _ln_geglu_fwd(x, ls, lb, wi, bi, wo, bo, eps):
                            ("wo", wo, (c, inner)), ("bo", bo, (c,))):
         _check_shape(name, t, shape)
     h = torch.empty((m, inner), dtype=x.dtype, device=x.device)
-    _gemm(lib, _EPI_GEGLU, x, ls, lb, eps, wi, bi, None, h)
+    _gemm(lib, "ff1", x, ls, lb, eps, wi, bi, None, h)
     out = torch.empty_like(x)
-    _gemm(lib, _EPI_BIAS_RES, h, None, None, 0.0, wo, bo, x, out)
+    _gemm(lib, "ff2", h, None, None, 0.0, wo, bo, x, out)
     LAUNCHES["B3"] += 1
     return out
 

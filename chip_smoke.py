@@ -8,6 +8,9 @@
 Phases, in order; any failure exits non-zero and prints no result:
   1. build    — nvcc the kernels in asva_tpu_torch/csrc (one process per
                 source, in parallel) into the git-ignored build directory;
+                ptxas's warnings (C7514: serialized wgmma) and, where
+                cuobjdump is installed, the HGMMA and HMMA instructions of
+                each library's SASS are reported;
   2. kernels  — each kernel against its plain PyTorch version on the card,
                 fp32 and bf16, with median times of both (CUDA events, after
                 warm-up): B1 fused_ln_attn, B2 fused_ln_attn3, B3
@@ -35,6 +38,14 @@ Phases, in order; any failure exits non-zero and prints no result:
                 1e-5 max(1, max|lse|) (lse) of B4, which left T2f's mma.sync
                 schedule for wgmma, T2b's dK/dV bit for bit across its orders,
                 beside B4 / B5 and the scaled_dot_product_attention yardstick;
+                K-gemm alone (fused.ln_gemm) in bf16: its four launches
+                (KG.q: LN + q projection, KG.out: output projection + bias +
+                residual, KG.ff1: LN + GEGLU, KG.ff2: the FF's second
+                product + bias + residual) at every level's token count for
+                one request and one training batch, against ln_gemm_plain,
+                timed as CUDA-graph replays beside torch.matmul on the same
+                bf16 product (cuBLAS without prologue or epilogue, a
+                yardstick the port never calls) and achieved TFLOP/s;
   3. unet     — first the `ln=None` attention modules at full width
                 (FFSpatialAttention; CrossAttention on text and on unmasked
                 audio tokens; 32x32 and 16x16 levels) against
@@ -166,13 +177,34 @@ KERNELS = {
             ["asva_tpu_torch/csrc/attn_bwd_fused.cu",
              "asva_tpu_torch/csrc/attn_tile.cuh"]),
 }
+_GEMM_SOURCES = ["asva_tpu_torch/csrc/gemm.cu", "asva_tpu_torch/csrc/hopper.cuh",
+                 "asva_tpu_torch/csrc/wgmma.cuh"]
+KERNELS.update({   # K-gemm's four launches inside B1/B2 and B3
+    "KG.q": ("asva_tpu/ops/pallas_fused.py:304",
+             "pallas_fused._ln_attn_flat: LN + q projection", _GEMM_SOURCES),
+    "KG.out": ("asva_tpu/ops/pallas_fused.py:304",
+               "pallas_fused._ln_attn_flat: output projection + bias + "
+               "residual", _GEMM_SOURCES),
+    "KG.ff1": ("asva_tpu/ops/pallas_fused.py:123",
+               "pallas_fused._ln_geglu_flat: LN + GEGLU product",
+               _GEMM_SOURCES),
+    "KG.ff2": ("asva_tpu/ops/pallas_fused.py:123",
+               "pallas_fused._ln_geglu_flat: second product + bias + "
+               "residual", _GEMM_SOURCES)})
+# K-gemm's launches (fused._FORMS): weight rows and contraction per C, LN
+GEMM_FORMS = (("q", 1, 1, True), ("out", 1, 1, False), ("ff1", 8, 1, True),
+              ("ff2", 1, 4, False))
 # the case whose bf16 times go into the kernels line
 TIMED_CASE = {"B1": "attn1 32x32", "B2": "attn3 32x32", "B3": "ff 32x32",
               "B4": "attn1 32x32", "B5": "attn1 32x32", "B6": "attn1 32x32",
               "B7": "mix 32x32", "T1": "v0 ", "T2F": "L0.attn1 g1 ",
-              "T2B": "L0.attn1 b0 "}
-# B1 and B3 also run on the training path: their bf16 times at its shapes
-TRAIN_TIMED_CASE = {"B1": "train attn1 32x32", "B3": "train ff 32x32"}
+              "T2B": "L0.attn1 b0 ", "KG.q": "q 32x32", "KG.out": "out 32x32",
+              "KG.ff1": "ff1 32x32", "KG.ff2": "ff2 32x32"}
+# B1, B3 and K-gemm also run on the training path: their bf16 times at its
+# shapes
+TRAIN_TIMED_CASE = {"B1": "train attn1 32x32", "B3": "train ff 32x32",
+                    "KG.q": "train q 32x32", "KG.out": "train out 32x32",
+                    "KG.ff1": "train ff1 32x32", "KG.ff2": "train ff2 32x32"}
 
 
 def log(msg: str) -> None:
@@ -198,6 +230,20 @@ def time_ms(fn, warmup: int = 2, iters: int = 7) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2]
+
+
+def graph_ms(fn, reps: int = 10) -> float:
+    """Median milliseconds of one fn() replayed from a CUDA graph of `reps`
+    calls: the device's time without the host's per-call overhead (30-60 us
+    for a wrapper, more than a small kernel takes)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return time_ms(graph.replay) / reps
 
 
 # ------------------------------------------------------------- phase 2 ---
@@ -497,6 +543,70 @@ def tool_kernel_rows(gen, dtype):
     return rows
 
 
+def gemm_rows(gen):
+    """K-gemm alone in bf16: each of its four launches at every SD1.5
+    level's token count for one request (2 clips) and one training batch
+    (4 clips, "train"), held against ln_gemm_plain under the bf16 gate,
+    beside its bound, achieved TFLOP/s and torch.matmul on the same (M, K) x
+    (K, N) bf16 product: cuBLAS's product without the prologue or epilogue,
+    a yardstick only (the port never calls it there).  Both are timed as
+    CUDA-graph replays (graph_ms), the plain version as the other rows."""
+    import torch
+    from asva_tpu_torch.ops import fused
+    dtype, dname = torch.bfloat16, "bfloat16"
+    rows = []
+    with torch.no_grad():
+        for prefix, b in (("", B), ("train ", TRAIN_B)):
+            for level, (n, c) in SD_LEVELS.items():
+                m = b * F * n
+                for form, wn, wk, with_ln in GEMM_FORMS:
+                    k, nw = wk * c, wn * c
+                    nout = nw // 2 if form == "ff1" else nw
+                    a = _rand(gen, (m, k), dtype)
+                    w = _rand(gen, (nw, k), dtype, k ** -0.5)
+                    bias = res = ln = None
+                    if form != "q":
+                        bias = _rand(gen, (nw,), dtype, 0.1)
+                    if form in ("out", "ff2"):
+                        res = _rand(gen, (m, nout), dtype)
+                    if with_ln:
+                        ln = (_rand(gen, (k,), dtype, 0.1, 1.0),
+                              _rand(gen, (k,), dtype, 0.1), 1e-5)
+                    args = (form, a, w, bias, res, ln)
+                    out = fused.ln_gemm(*args)
+                    ref = fused.ln_gemm_plain(*args)
+                    torch.cuda.synchronize()
+                    err, tol, scale = _compare(out, ref, dname)
+                    flops = 2 * m * nw * k
+                    nbytes = _nbytes(a, w, out, *_tensors(
+                        [bias, res] + list(ln[:2] if ln else [])))
+                    del out, ref
+                    bound_ms, bound_by = _bound(flops, nbytes, dname)
+                    ms = graph_ms(lambda: fused.ln_gemm(*args))
+                    wt = w.t()
+                    row = dict(
+                        kernel=f"KG.{form}", dtype=dname, max_abs_err=err,
+                        case=f"{prefix}{form} {level} M={m} N={nout} K={k}",
+                        tol=tol, max_abs_ref=scale, ok=err <= tol,
+                        bytes=nbytes, operations=flops, bound_ms=bound_ms,
+                        bound_by=bound_by, library_ms=None, ms=ms,
+                        plain_ms=time_ms(lambda: fused.ln_gemm_plain(*args),
+                                         1, 3),
+                        matmul_ms=graph_ms(lambda: torch.matmul(a, wt)),
+                        tflops=flops / ms / 1e9)
+                    rows.append(row)
+                    log(f"  {row['kernel']:6s} {dname:8s} {row['case']:40s} "
+                        f"err {err:.3e} (tol {tol:.3e})  kernel {ms:8.4f} ms "
+                        f"({row['tflops']:6.1f} TFLOP/s)  plain "
+                        f"{row['plain_ms']:8.3f} ms  bound {bound_ms:.4f} ms "
+                        f"({bound_by})  matmul {row['matmul_ms']:.4f} ms "
+                        f"({row['matmul_ms'] / ms:.2f}x the kernel's "
+                        f"speed)  {'ok' if row['ok'] else 'FAIL'}")
+                    del a, w, bias, res, ln, args, wt
+                torch.cuda.empty_cache()
+    return rows
+
+
 def _tensors(x):
     import torch
     if torch.is_tensor(x):
@@ -614,6 +724,7 @@ def phase_kernels(report):
                     f"{'ok' if row['ok'] else 'FAIL'}")
             torch.cuda.empty_cache()
         rows += tool_kernel_rows(gen, dtype)
+    rows += gemm_rows(gen)
     report["kernels"] = rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -1606,12 +1717,28 @@ def main() -> int:
     built = cuda_build.build()
     report["build_seconds"] = time.perf_counter() - t0
     cuda_build.library()
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()),
+                             "cuobjdump")
     for name, (path, ptxas) in built.items():
         usage = [ln.strip() for ln in ptxas.splitlines()
                  if "registers" in ln or "spill" in ln]
+        warnings = [ln.strip() for ln in ptxas.splitlines()
+                    if "warning" in ln.lower()]
         report[f"ptxas_{name}"] = usage
+        report[f"ptxas_warnings_{name}"] = warnings
+        sass = {}
+        if os.path.isfile(cuobjdump):   # which tensor-core instructions
+            text = subprocess.run([cuobjdump, "-sass", path],
+                                  capture_output=True, text=True,
+                                  timeout=300).stdout
+            sass = {op: sum(f" {op}." in ln or f" {op} " in ln
+                            for ln in text.splitlines())
+                    for op in ("HGMMA", "HMMA")}
+        report[f"sass_{name}"] = sass
         log(f"  {name}: {os.path.relpath(path, ROOT)}; "
-            f"{len(usage)} ptxas usage lines")
+            f"{len(usage)} ptxas usage lines; {len(warnings)} ptxas "
+            f"warnings ({sum('C7514' in w for w in warnings)} C7514); "
+            f"SASS {sass or 'not read (no cuobjdump)'}")
     log(f"  build {report['build_seconds']:.1f} s")
 
     smi = subprocess.run(
@@ -1666,6 +1793,12 @@ def main() -> int:
         "T1": {"tools.attn_experiments main": tool_counts["T1"]},
         "T2F": {"tools.mha_phase_bench main": tool_counts["T2F"]},
         "T2B": {"tools.mha_phase_bench main": tool_counts["T2B"]}}
+    for form in ("q", "out", "ff1", "ff2"):
+        key = f"KG.{form}"
+        by_path[key] = {"unet fuse_blocks=False": b1_counts[key],
+                        "pipeline, 3 requests": pipe_counts[key],
+                        "train, 4 steps": train_counts[key],
+                        "judge, 3 requests": judge_counts[key]}
     kernels = []
     for name, (replaces, tpu, sources) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name
@@ -1683,6 +1816,8 @@ def main() -> int:
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
             timed_case=f"{main['case']} bf16")
+        if "matmul_ms" in main:          # K-gemm: the product yardstick
+            entry.update(matmul_ms=main["matmul_ms"], tflops=main["tflops"])
         if "production_ms" in main:      # the tools' kernels: every variant
             entry["production_ms"] = main["production_ms"]
             entry["ms_by_case"] = {r["case"].strip(): r["ms"] for r in mine
@@ -1693,6 +1828,9 @@ def main() -> int:
                 timed_case=f"{train['case']} bf16", ms=train["ms"],
                 plain_ms=train["plain_ms"], bound_ms=train["bound_ms"],
                 bound_by=train["bound_by"])
+            if "matmul_ms" in train:
+                entry["train_shape"].update(matmul_ms=train["matmul_ms"],
+                                            tflops=train["tflops"])
         kernels.append(entry)
     if any(n <= 0 for paths in by_path.values() for n in paths.values()):
         fail(f"a kernel was not launched on one of its paths: {by_path}")

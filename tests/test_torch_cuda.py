@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (B1-B7 and the tools' T1, T2f, T2b) against their
-plain versions, on a card.
+"""The port's CUDA kernels (B1-B7, K-gemm alone and the tools' T1, T2f, T2b)
+against their plain versions, on a card.
 
 Marked `cuda`: each test skips without a CUDA device.  This file imports no
 JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
@@ -8,7 +8,9 @@ JAX, so it runs on a machine with only PyTorch and the CUDA toolkit:
 
 (`--noconftest`: tests/conftest.py configures JAX.)  chip_smoke.py holds
 the kernels against their plain versions at every SD1.5 level; this file
-covers what that run does not reach: kv_len < Sk masking (for B4/B5 at
+covers what that run does not reach: K-gemm at every (N, K) of the SD1.5
+sub-layers with and without LN at ragged M, its batch invariance and
+repeatability, and its unsupported shapes; kv_len < Sk masking (for B4/B5 at
 every position of the last K/V tile), ragged token counts that are not tile
 multiples, head dims 40/80/96/160, B5's split dK/dV path for few K/V rows,
 o bit-identical with and without lse and on recompute, and the rule that a
@@ -123,6 +125,112 @@ def test_wrapper_rejects_bad_input(dev):
         fused.fused_ln_attn(x, *sub, kv.cpu(), kv, 1e-5, 8)
     assert np.isfinite(fused.fused_ln_attn(x, *sub, kv, kv, 1e-5, 8)
                        .cpu().numpy()).all()
+
+
+# --------------------------------------------------------------- K-gemm ---
+
+# every (N, K) of the store and bias + residual launches of the SD1.5
+# sub-layers (q / out projections: C x C; the FF's second product: C x 4C),
+# and of the LN + GEGLU launch (N = 4C value columns, K = C)
+_GEMM_NK = [(n, k) for c in (320, 640, 1280) for n, k in ((c, c), (c, 4 * c))]
+GEMM_CASES = ([("q", n, k) for n, k in _GEMM_NK]
+              + [("out", n, k) for n, k in _GEMM_NK]
+              + [("ff1", 4 * c, c) for c in (320, 640, 1280)])
+
+
+def _gemm_args(gen, form, m, n, k, with_ln, dtype=torch.bfloat16):
+    """(form, a, w, bias, res, ln) for fused.ln_gemm; ff1's weight holds
+    the value and gate rows (2N, K)."""
+    rows = 2 * n if form == "ff1" else n
+    bias = _r(gen, (rows,), dtype, 0.1) if form != "q" else None
+    res = _r(gen, (m, n), dtype) if form == "out" else None
+    ln = ((_r(gen, (k,), dtype, 0.1, 1.0), _r(gen, (k,), dtype, 0.1), 1e-5)
+          if with_ln else None)
+    return (form, _r(gen, (m, k), dtype), _r(gen, (rows, k), dtype, k ** -0.5),
+            bias, res, ln)
+
+
+@pytest.mark.parametrize("m", [1, 77, 200, 384, 24576])
+@pytest.mark.parametrize("with_ln", [True, False])
+@pytest.mark.parametrize("form,n,k", GEMM_CASES)
+def test_k_gemm_on_card(dev, form, n, k, with_ln, m):
+    """bf16 K-gemm alone, each epilogue with and without the LN prologue,
+    ragged M included, against ln_gemm_plain."""
+    args = _gemm_args(torch.Generator(device="cuda").manual_seed(20), form,
+                      m, n, k, with_ln)
+    before = fused.LAUNCHES[f"KG.{form}"]
+    with torch.no_grad():
+        got = fused.ln_gemm(*args)
+    assert fused.LAUNCHES[f"KG.{form}"] == before + 1
+    assert got.shape == (m, n)
+    _check(got, fused.ln_gemm_plain(*args), torch.bfloat16)
+
+
+@pytest.mark.parametrize("with_ln", [True, False])
+@pytest.mark.parametrize("form", ["q", "out", "ff1"])
+def test_k_gemm_fp32_on_card(dev, form, with_ln):
+    n = 1280 if form == "ff1" else 320
+    args = _gemm_args(torch.Generator(device="cuda").manual_seed(21), form,
+                      200, n, 320, with_ln, torch.float32)
+    with torch.no_grad():
+        _check(fused.ln_gemm(*args), fused.ln_gemm_plain(*args),
+               torch.float32)
+
+
+@pytest.mark.parametrize("form,n,k,with_ln", [
+    ("q", 320, 320, True), ("ff1", 1280, 320, True), ("out", 320, 1280, False),
+    ("out", 640, 640, True)])
+def test_k_gemm_rows_do_not_depend_on_the_launch(dev, form, n, k, with_ln):
+    """Batch invariance: rows of a 24576-row launch equal, bit for bit, the
+    same rows launched alone (the first 77, and 200 rows from row 100, the
+    middle of a block's tile), and a repeated call gives the same bits."""
+    args = list(_gemm_args(torch.Generator(device="cuda").manual_seed(22),
+                           form, 24576, n, k, with_ln))
+    with torch.no_grad():
+        full = fused.ln_gemm(*args)
+        assert torch.equal(fused.ln_gemm(*args), full)
+        a, res = args[1], args[4]
+        for lo, hi in ((0, 77), (100, 300)):
+            args[1] = a[lo:hi].contiguous()
+            if res is not None:
+                args[4] = res[lo:hi].contiguous()
+            assert torch.equal(fused.ln_gemm(*args), full[lo:hi])
+
+
+def test_b3_repeats_bit_for_bit(dev):
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    m, c = 384, 640
+    args = [_r(gen, (m, c), torch.bfloat16),
+            _r(gen, (c,), torch.bfloat16, 0.1, 1.0),
+            _r(gen, (c,), torch.bfloat16, 0.1),
+            _r(gen, (8 * c, c), torch.bfloat16, c ** -0.5),
+            _r(gen, (8 * c,), torch.bfloat16, 0.1),
+            _r(gen, (c, 4 * c), torch.bfloat16, (4 * c) ** -0.5),
+            _r(gen, (c,), torch.bfloat16, 0.1)]
+    with torch.no_grad():
+        assert torch.equal(fused.fused_ln_geglu(*args, 1e-5),
+                           fused.fused_ln_geglu(*args, 1e-5))
+
+
+def test_k_gemm_unsupported_shape_raises(dev):
+    """The wrapper names the rule; under it the kernel's own check returns
+    an error that _raise_on turns into a RuntimeError."""
+    from asva_tpu_torch.ops import cuda_build
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    with pytest.raises(ValueError, match="K-gemm takes K"):
+        fused.ln_gemm(*_gemm_args(gen, "q", 64, 320, 96, False))
+    with pytest.raises(ValueError, match="K-gemm takes N"):
+        fused.ln_gemm(*_gemm_args(gen, "out", 64, 100, 320, False))
+    _, a, w, bias, res, _ = _gemm_args(gen, "out", 64, 100, 320, False)
+    out = torch.empty_like(res)
+    lib = cuda_build.library()
+    for n, k in ((100, 320), (320, 96)):
+        rc = lib.gemm.asva_ln_gemm(1, 2, 64, n, k, a.data_ptr(), None, None,
+                                   0.0, w.data_ptr(), bias.data_ptr(),
+                                   res.data_ptr(), out.data_ptr(),
+                                   torch.cuda.current_stream().cuda_stream)
+        with pytest.raises(RuntimeError, match="K-gemm kernel launch failed"):
+            fused._raise_on(lib, rc, "K-gemm")
 
 
 # ------------------------------------------------------------ B4 and B5 ---
