@@ -1,9 +1,9 @@
-// Tile code shared by the kernel-tool sources (attn_variants.cu T1,
-// attn_grouped.cu T2f, attn_bwd_fused.cu T2b): the bf16 mma.sync m16n8k16
-// fragments, the 64-row head-tile loader and the quad reductions, in the
-// order of the mma.sync forms of attn.cu / attn_bwd.cu that preceded their
-// wgmma forms: the tools' baseline schedule.  T2f's groups reproduce one
-// another bit for bit; against B4 they agree within rounding.
+// Tile code of T1 (attn_variants.cu), the one kernel-tool source still on
+// mma.sync: the bf16 m16n8k16 fragments, the 64-row head-tile loader and
+// the quad reductions, in the order of the mma.sync forms of attn.cu /
+// attn_bwd.cu that preceded their wgmma forms.  T2f (attn_grouped.cu) and
+// T2b (attn_bwd_fused.cu) moved to B4's and B5's wgmma tile code
+// (hopper.cuh, wgmma.cuh).
 //
 // Layout conventions: a warp owns 16 rows; lane = 4 * g + t4; an mma
 // accumulator c[4] holds rows g (c[0], c[1]) and g + 8 (c[2], c[3]) at
@@ -112,34 +112,6 @@ __device__ __forceinline__ void qk_tile(float (&s)[8][4],
       const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kr + kc * 16);
       const uint32_t b1 = *reinterpret_cast<const uint32_t*>(kr + kc * 16 + 8);
       mma_bf16(s[nt], qf[kc], b0, b1);
-    }
-  }
-}
-
-// s (16 x 64, this warp's rows) = A[16 x DP] B[64 x DP]^T, both in shared
-// memory with row stride DP + 8; `a` points at the warp's first row.  The
-// loop order (contraction outside) is attn_bwd.cu's.
-template <int DP>
-__device__ __forceinline__ void mma_abt(float (&s)[8][4], const bf16* a,
-                                        const bf16* b, int g, int t4) {
-  constexpr int LD = DP + 8, KC = DP / 16;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const bf16* ar = a + g * LD + kc * 16 + t4 * 2;
-    uint32_t af[4];
-    af[0] = *reinterpret_cast<const uint32_t*>(ar);
-    af[1] = *reinterpret_cast<const uint32_t*>(ar + 8 * LD);
-    af[2] = *reinterpret_cast<const uint32_t*>(ar + 8);
-    af[3] = *reinterpret_cast<const uint32_t*>(ar + 8 * LD + 8);
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const bf16* br = b + (nt * 8 + g) * LD + kc * 16 + t4 * 2;
-      mma_bf16(s[nt], af, *reinterpret_cast<const uint32_t*>(br),
-               *reinterpret_cast<const uint32_t*>(br + 8));
     }
   }
 }

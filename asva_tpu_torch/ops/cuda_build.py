@@ -43,9 +43,9 @@ KERNEL_TABLE = {
         "asva_ff_mix": ([_I] * 5 + [_VP] * 4 + [_I] * 3 + [_VP] * 3, _I)}),
     "attn_variants": (("attn_tile.cuh",), {
         "asva_ln_attn_variant": ([_I] * 9 + [_F] * 2 + [_VP] * 10, _I)}),
-    "attn_grouped": (("attn_tile.cuh",), {
+    "attn_grouped": (("hopper.cuh", "wgmma.cuh"), {
         "asva_mha_fwd_grouped": ([_I] * 8 + [_F] + [_VP] * 6, _I)}),
-    "attn_bwd_fused": (("attn_tile.cuh",), {
+    "attn_bwd_fused": (("hopper.cuh", "wgmma.cuh"), {
         "asva_mha_bwd_fused": ([_I] * 9 + [_F] + [_VP] * 10, _I)}),
 }
 SOURCES = tuple(KERNEL_TABLE)

@@ -11,11 +11,14 @@ its own (`csrc/attn_variants.cu`, `csrc/attn_grouped.cu`,
        out-projection, residual) in ONE launch, in ten variants of softmax
        arithmetic and schedule (`VARIANTS`);
   T2f  the flash forward with `group` heads per block, their logits started
-       before any softmax; o and lse equal across groups bit for bit and
-       B4's within rounding;
-  T2b  the flash backward as one kernel of five products: dK/dV carried in
-       registers over the query tiles, dQ added into an fp32 buffer with
-       atomics and cast once.
+       before any softmax, on B4's wgmma tile code (`hopper.cuh`,
+       `wgmma.cuh`) with B4's statements per head: o and lse bit-equal to
+       B4's at every group;
+  T2b  the flash backward as one kernel of five products on B5's dK/dV
+       kernel: dK/dV carried in registers over the query tiles (bit-equal
+       across the orders, and to B5's where B5 runs unsplit), dQ = dS K as
+       a fifth wgmma, the block's two warpgroups summed in shared memory and
+       added into an fp32 buffer with vector atomics, cast once.
 
 Dispatch is by device, as in `fused`: a CPU tensor gets the plain version
 (`ln_attn_variant_plain`, `fused.mha_fwd_plain`, `fused.mha_bwd_plain`), a
@@ -174,7 +177,10 @@ def t2f_supported(d: int, group: int) -> Optional[str]:
     """None when attn_grouped.cu has an instantiation for (head dim, group),
     else the reason.  A head costs a thread 32 words of logits and tile / 2 of
     output accumulator; the instantiations stop at group * (32 + tile / 2)
-    <= 256, the register file's share of one thread."""
+    <= 256, the register file's share of one thread (group 4 up to head tile
+    64, group 2 up to 160).  Every admitted (tile, group) has a shared-memory
+    plan: the kernel takes 3 or 2 ring stages and 2 or 1 warpgroups a block
+    to fit 227 KB."""
     tile = _head_tile(d)
     if d % 8 or tile not in T2_HEAD_TILES:
         return (f"head dim {d}: T2 takes multiples of 8 whose 16-padded "
@@ -190,9 +196,10 @@ def mha_fwd_grouped(q, k, v, num_heads: int, kv_len: Optional[int],
                     group: int = 1):
     """T2f: B4's function, q (G, M, H*D), k/v (G, Sk, H*D) -> (o, lse
     (G, M, H) fp32), with `group` heads per block and all their logits
-    started before any softmax.  `block_m` is the TPU tile height and does not
-    apply: a block owns 64 query rows.  Raises ValueError for a (group, head
-    dim) without an instantiation (`t2f_supported`)."""
+    started before any softmax; bit-equal to `fused.mha_fwd`.  `block_m` is
+    the TPU tile height and does not apply: a block owns 64 query rows a
+    warpgroup.  Raises ValueError for a (group, head dim) without an
+    instantiation (`t2f_supported`)."""
     if q.device.type == "cpu":
         return fused.mha_fwd_plain(q, k, v, num_heads, kv_len, scale)
     lib = _prepare(q, k, v)
@@ -217,7 +224,9 @@ def t2b_supported(d: int, num_heads: int, variant: str) -> Optional[str]:
     variant), else the reason.  A head costs a thread 64 words of S^T and
     (dO V^T)^T and `tile` words of dK/dV accumulators; the instantiations
     stop at heads * (64 + tile) <= 512 (past 255 registers the rest spills to
-    local memory)."""
+    local memory, and ptxas serializes the wgmma of b4).  Every admitted
+    (tile, heads) has a shared-memory plan: 3, 2 or 1 ring stages and 2 or
+    1 warpgroups a block."""
     tile = _head_tile(d)
     if d % 8 or tile not in T2_HEAD_TILES:
         return (f"head dim {d}: T2 takes multiples of 8 whose 16-padded "
@@ -235,8 +244,9 @@ def mha_bwd_ordered(q, k, v, do, lse, dd, num_heads: int,
                     block_m: Optional[int] = None, variant: str = "b0"):
     """T2b: B5's function -> (dq, dk, dv) in the dtypes of (q, k, v), as one
     kernel of five products in the schedule `variant` (`BWD_VARIANTS`).
-    dK/dV are summed in a fixed order (reproducible); dQ is added across the
-    K/V tiles with fp32 atomics and cast once.  `block_m` does not apply.
+    dK/dV are B5's statements in B5's order (reproducible; B5's bits where
+    `fused.dkv_split` is 1); dQ is added across the K/V blocks with fp32
+    atomics and cast once.  `block_m` does not apply.
     Raises ValueError for a (variant, head dim) without an instantiation
     (`t2b_supported`)."""
     if variant not in BWD_VARIANTS:

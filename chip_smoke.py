@@ -8,9 +8,13 @@
 Phases, in order; any failure exits non-zero and prints no result:
   1. build    — nvcc the kernels in asva_tpu_torch/csrc (one process per
                 source, in parallel) into the git-ignored build directory;
-                ptxas's warnings (C7514: serialized wgmma) and, where
-                cuobjdump is installed, the HGMMA and HMMA instructions of
-                each library's SASS are reported;
+                ptxas's warnings and its notes on serialized wgmma
+                (C7511/C7512: too few registers, reported; C7514: a branch
+                around a wgmma, fatal) and the HGMMA and HMMA instructions
+                of each library's SASS (the toolkit's cuobjdump) are
+                reported; a wgmma source (gemm, attn, attn_bwd,
+                attn_grouped, attn_bwd_fused) without HGMMA, with HMMA or
+                whose SASS cannot be read fails;
   2. kernels  — each kernel against its plain PyTorch version on the card,
                 fp32 and bf16, with median times of both (CUDA events, after
                 warm-up): B1 fused_ln_attn, B2 fused_ln_attn3, B3
@@ -33,11 +37,12 @@ Phases, in order; any failure exits non-zero and prints no result:
                 T2f mha_fwd_grouped and T2b mha_bwd_ordered at the five
                 training shapes of tools/mha_phase_bench.py, every supported
                 group size and schedule (groups 1, 2 and b0, b1, b2 must
-                be), against mha_fwd_plain / mha_bwd_plain, T2f's groups bit
-                for bit against group 1 and within 2**-6 max|o| (o) and
-                1e-5 max(1, max|lse|) (lse) of B4, which left T2f's mma.sync
-                schedule for wgmma, T2b's dK/dV bit for bit across its orders,
-                beside B4 / B5 and the scaled_dot_product_attention yardstick;
+                be), against mha_fwd_plain / mha_bwd_plain; T2f's o and lse
+                bit for bit B4's at every group (both run B4's statements
+                per head), T2b's dK/dV bit for bit across its orders and, in
+                bf16 where B5 runs its dK/dV kernel unsplit
+                (fused.dkv_split 1: L0.attn1, L0.audio), B5's; beside B4 / B5
+                and the scaled_dot_product_attention yardstick;
                 K-gemm alone (fused.ln_gemm) in bf16: its four launches
                 (KG.q: LN + q projection, KG.out: output projection + bias +
                 residual, KG.ff1: LN + GEGLU, KG.ff2: the FF's second
@@ -172,10 +177,12 @@ KERNELS = {
             "asva_tpu_torch/csrc/attn_tile.cuh"]),
     "T2F": ("tools/mha_phase_bench.py:82", "mha_phase_bench.fwd_flat",
             ["asva_tpu_torch/csrc/attn_grouped.cu",
-             "asva_tpu_torch/csrc/attn_tile.cuh"]),
+             "asva_tpu_torch/csrc/hopper.cuh",
+             "asva_tpu_torch/csrc/wgmma.cuh"]),
     "T2B": ("tools/mha_phase_bench.py:185", "mha_phase_bench.bwd_flat",
             ["asva_tpu_torch/csrc/attn_bwd_fused.cu",
-             "asva_tpu_torch/csrc/attn_tile.cuh"]),
+             "asva_tpu_torch/csrc/hopper.cuh",
+             "asva_tpu_torch/csrc/wgmma.cuh"]),
 }
 _GEMM_SOURCES = ["asva_tpu_torch/csrc/gemm.cu", "asva_tpu_torch/csrc/hopper.cuh",
                  "asva_tpu_torch/csrc/wgmma.cuh"]
@@ -191,6 +198,9 @@ KERNELS.update({   # K-gemm's four launches inside B1/B2 and B3
     "KG.ff2": ("asva_tpu/ops/pallas_fused.py:123",
                "pallas_fused._ln_geglu_flat: second product + bias + "
                "residual", _GEMM_SOURCES)})
+# the sources whose bf16 products are all wgmma (phase 1 holds their SASS
+# to it); mix.cu and attn_variants.cu are mma.sync
+WGMMA_SOURCES = ("gemm", "attn", "attn_bwd", "attn_grouped", "attn_bwd_fused")
 # K-gemm's launches (fused._FORMS): weight rows and contraction per C, LN
 GEMM_FORMS = (("q", 1, 1, True), ("out", 1, 1, False), ("ff1", 8, 1, True),
               ("ff2", 1, 4, False))
@@ -418,8 +428,10 @@ def tool_kernel_rows(gen, dtype):
         bound_ms, bound_by = _bound(flops, nbytes, dname)
         r = dict(kernel=kernel, case=case, dtype=dname, max_abs_err=err,
                  tol=rtol, max_abs_ref=scale, ok=err <= rtol and
-                 all(extra.get(k, True)
-                     for k in ("equals_g1", "near_b4", "dkdv_equal")),
+                 extra.get("equal_to_b4", True)
+                 and extra.get("dkdv_equal", True)
+                 and (extra.get("dkdv_equal_to_b5", True)
+                      or not extra.get("b5_unsplit", False)),
                  bytes=nbytes, operations=flops, bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=library_ms,
                  production_ms=prod_ms, plain_ms=plain_ms,
@@ -486,11 +498,9 @@ def tool_kernel_rows(gen, dtype):
                 with torch.enable_grad():
                     lib_b = sdpa_ms("B5", [q.clone(), kk.clone(), vv.clone(),
                                            do, scale])
-            ran, g1 = [], None
-            # T2f keeps B4's earlier mma.sync order: bit for bit across its
-            # groups, within the stated tolerances of B4
-            tol_o = TOL["bfloat16"] * o4.float().abs().max().item()
-            tol_lse = 1e-5 * max(1.0, lse4.abs().max().item())
+            ran = []
+            # T2f runs B4's statements per head in B4's order: bit for bit
+            # B4's o and lse at every group
             for group in (1, 2, 4, HEADS):
                 why = variants.t2f_supported(d, group)
                 if why:
@@ -501,21 +511,22 @@ def tool_kernel_rows(gen, dtype):
                                      ok=True))
                     continue
                 out = variants.mha_fwd_grouped(*fwd, None, group)
-                g1 = g1 or out
-                same = bool(torch.equal(out[0], g1[0])
-                            and torch.equal(out[1], g1[1]))
-                near = bool(
-                    (out[0].float() - o4.float()).abs().max() <= tol_o
-                    and (out[1] - lse4).abs().max() <= tol_lse)
+                same = bool(torch.equal(out[0], o4)
+                            and torch.equal(out[1], lse4))
                 row("T2F", f"{tag} g{group} ", out, ref,
                     lambda: variants.mha_fwd_grouped(*fwd, None, group),
                     plain_f, 4 * g * m * rows_kv * c,
                     _nbytes(q, out[0], out[1]) + 2 * g * rows_kv * c
-                    * q.element_size(), b4_ms, lib_f, equals_g1=same,
-                    near_b4=near)
+                    * q.element_size(), b4_ms, lib_f, equal_to_b4=same)
                 ran.append(group)
             if ran[:2] != [1, 2]:
                 fail(f"T2f: groups 1 and 2 must be supported at {tag}")
+            # T2b's dK/dV: bit for bit across its orders and, where B5 runs
+            # its dK/dV kernel unsplit (bf16, fused.dkv_split 1), B5's
+            b5 = fused.mha_bwd(*bwd)
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            unsplit = (dname == "bfloat16" and fused.dkv_split(
+                g, m, sk, HEADS, d, sms) == 1)
             ran, first = [], None
             for var in ("b0", "b1", "b2", "b4", "b3"):
                 why = variants.t2b_supported(d, HEADS, var)
@@ -529,16 +540,19 @@ def tool_kernel_rows(gen, dtype):
                 first = first or out
                 same = bool(torch.equal(out[1], first[1])
                             and torch.equal(out[2], first[2]))
+                eq_b5 = bool(torch.equal(out[1], b5[1])
+                             and torch.equal(out[2], b5[2]))
                 row("T2B", f"{tag} {var} ", out, ref_b,
                     lambda: variants.mha_bwd_ordered(*bwd, None, var),
                     plain_b, 10 * g * m * rows_kv * c,
                     _nbytes(q, do, lse4, dd, out[0], out[1], out[2])
                     + 2 * g * rows_kv * c * q.element_size(), b5_ms, lib_b,
-                    dkdv_equal=same)
+                    dkdv_equal=same, b5_unsplit=unsplit,
+                    dkdv_equal_to_b5=eq_b5)
                 ran.append(var)
             if ran[:3] != ["b0", "b1", "b2"]:
                 fail(f"T2b: b0, b1 and b2 must be supported at {tag}")
-            del q, k, v, do, o4, lse4, ref, ref_b, dd, first, g1
+            del q, k, v, do, o4, lse4, ref, ref_b, dd, first, b5
             torch.cuda.empty_cache()
     return rows
 
@@ -1722,8 +1736,9 @@ def main() -> int:
     for name, (path, ptxas) in built.items():
         usage = [ln.strip() for ln in ptxas.splitlines()
                  if "registers" in ln or "spill" in ln]
+        # warnings, and the notes on serialized wgmma (C7510-C7520)
         warnings = [ln.strip() for ln in ptxas.splitlines()
-                    if "warning" in ln.lower()]
+                    if "warning" in ln.lower() or "(C75" in ln]
         report[f"ptxas_{name}"] = usage
         report[f"ptxas_warnings_{name}"] = warnings
         sass = {}
@@ -1735,10 +1750,21 @@ def main() -> int:
                             for ln in text.splitlines())
                     for op in ("HGMMA", "HMMA")}
         report[f"sass_{name}"] = sass
+        codes = {}
+        for w in warnings:
+            if "(C75" in w:
+                code = w[w.index("(C75") + 1:w.index("(C75") + 6]
+                codes[code] = codes.get(code, 0) + 1
         log(f"  {name}: {os.path.relpath(path, ROOT)}; "
             f"{len(usage)} ptxas usage lines; {len(warnings)} ptxas "
-            f"warnings ({sum('C7514' in w for w in warnings)} C7514); "
+            f"warnings and notes {codes or ''}; "
             f"SASS {sass or 'not read (no cuobjdump)'}")
+        if any("C7514" in w for w in warnings):
+            fail(f"{name}: ptxas serialized wgmma around a branch (C7514)")
+        if name in WGMMA_SOURCES and (not sass or sass["HGMMA"] == 0
+                                      or sass["HMMA"] > 0):
+            fail(f"{name}: its SASS must hold HGMMA and no HMMA, has "
+                 f"{sass or 'none read'}")
     log(f"  build {report['build_seconds']:.1f} s")
 
     smi = subprocess.run(

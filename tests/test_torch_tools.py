@@ -151,6 +151,34 @@ def test_support_rules():
     assert variants.t1_supported(320, 8, 96) is not None
 
 
+@pytest.mark.parametrize("kernel,d,arg,supported", [
+    ("t2f", 64, 4, True),      # group 4 up to head tile 64
+    ("t2f", 48, 4, True),
+    ("t2f", 160, 2, True),     # one warpgroup a block, two ring stages
+    ("t2f", 160, 4, False),
+    ("t2f", 96, 1, False),     # head tile 96 has no instantiation
+    ("t2f", 40, 3, False),     # groups are 1, 2 or 4
+    ("t2b", 64, (8, "b4"), True),
+    ("t2b", 160, (8, "b2"), True),   # one stage, no ring
+    ("t2b", 40, (6, "b4"), True),    # 4 heads a block, 6 heads: uneven
+    ("t2b", 40, (4, "b3"), True),    # all 4 heads in one block
+    ("t2b", 40, (2, "b3"), True),
+    ("t2b", 40, (3, "b3"), False),   # 3 heads a block: no instantiation
+    ("t2b", 80, (2, "b3"), True),
+    ("t2b", 160, (4, "b3"), False),
+])
+def test_support_rule_edges(kernel, d, arg, supported):
+    """Edges of the stated rules (groups / heads per block in {1, 2, 4},
+    T2f group * (32 + tile / 2) <= 256, T2b heads * (64 + tile) <= 512): no
+    case that the rules admitted before the kernels moved to wgmma is
+    refused now."""
+    if kernel == "t2f":
+        why = variants.t2f_supported(d, arg)
+    else:
+        why = variants.t2b_supported(d, *arg)
+    assert (why is None) == supported, why
+
+
 def _t2_inputs(g, m, sk, hd, seed=3):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(s).astype(np.float32) for s in
@@ -225,10 +253,29 @@ def test_mha_phase_bench_main_on_cpu(capsys):
         mine = [r for r in rows if r["tag"] == tag]
         assert [r["variant"] for r in mine if r["kind"] == "parity_bwd"] == \
             list(mha_phase_bench.BWD_NAMES)
+        assert all(r["equal_to_b4"] for r in mine
+                   if r["kind"] == "parity_fwd")
+        assert all(r["dkdv_equal_to_b5"] and "b5_unsplit" in r
+                   for r in mine if r["kind"] == "parity_bwd")
         assert [r["group"] for r in mine if r["kind"] == "time_fwd"][0] is None
         assert [r["variant"] for r in mine
                 if r["kind"] == "time_bwd"][0] is None
     assert "=== tiny.kv" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("shape,unsplit", [
+    (("wide", 66, 128, 8, 64, 2, None), True),   # 132 dK/dV blocks
+    (("few", 1, 256, 8, 64, 2, None), False),    # 2 blocks: B5 splits M
+])
+def test_mha_phase_bench_unsplit_gate_on_cpu(shape, unsplit):
+    """Where B5's dK/dV grid fills the card (`fused.dkv_split` 1) the rows
+    gate dk/dv equality to B5; where B5 splits the query range they report
+    it without gating."""
+    rows = mha_phase_bench.main(["--n", "1"], device="cpu", shapes=(shape,))
+    bwd = [r for r in rows if r["kind"] == "parity_bwd"]
+    assert len(bwd) == len(mha_phase_bench.BWD_NAMES)
+    assert all(r["b5_unsplit"] == unsplit and r["dkdv_equal_to_b5"]
+               and r["ok"] for r in bwd)
 
 
 def test_tools_import_no_jax():
