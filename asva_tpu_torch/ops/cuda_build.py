@@ -29,7 +29,7 @@ _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # One row per library: source name -> (headers it includes, {C entry point:
 # (argtypes, restype)}).  A new kernel is one row (or one entry of a row).
 KERNEL_TABLE = {
-    "gemm": (("hopper.cuh", "wgmma.cuh"), {
+    "gemm": (("hopper.cuh", "tma.cuh", "wgmma.cuh"), {
         "asva_ln_gemm": ([_I] * 5 + [_VP] * 3 + [_F] + [_VP] * 5, _I),
         "asva_error_string": ([_I], ctypes.c_char_p)}),
     "attn": (("hopper.cuh", "wgmma.cuh"), {
@@ -39,9 +39,9 @@ KERNEL_TABLE = {
         "asva_mha_bwd": ([_I] * 7 + [_F] + [_VP] * 10, _I),
         "asva_mha_bwd_split": ([_I] * 7 + [_F] + [_VP] * 9 + [_I, _VP, _VP],
                                _I)}),
-    "mix": ((), {
-        "asva_ff_mix": ([_I] * 5 + [_VP] * 4 + [_I] * 3 + [_VP] * 3, _I)}),
-    "attn_variants": (("attn_tile.cuh",), {
+    "mix": (("hopper.cuh", "tma.cuh", "wgmma.cuh"), {
+        "asva_ff_mix": ([_I] * 8 + [_VP] * 4 + [_I] * 3 + [_VP] * 3, _I)}),
+    "attn_variants": (("hopper.cuh", "tma.cuh", "wgmma.cuh"), {
         "asva_ln_attn_variant": ([_I] * 9 + [_F] * 2 + [_VP] * 10, _I)}),
     "attn_grouped": (("hopper.cuh", "wgmma.cuh"), {
         "asva_mha_fwd_grouped": ([_I] * 8 + [_F] + [_VP] * 6, _I)}),

@@ -20,7 +20,9 @@ Pallas body casts to x.dtype:
                                                 are few: `dkv_split`)
   B7 fused_ff_mix    (pallas _ff_mix_flat)    = `csrc/mix.cu` K-mix: one
                                                 product over [head|prev|curr]
-                                                with y + bias in the epilogue
+                                                on K-gemm's wgmma + TMA ring
+                                                (`ff_mix_plan`), y + bias in
+                                                the epilogue
 
 B6 (pallas_attn's flat attention) lives in `ops/flat_attention.py`; it shares
 `csrc/attn.cu` and the `LAUNCHES` table below.
@@ -45,6 +47,7 @@ kernel launches.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -507,7 +510,38 @@ def _ln_attn3_fwd(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
     return h.view(b, f, n, c)
 
 
-def _ff_mix_fwd(y, kh, kp, kc, bias):
+# B7's loaders of A in csrc/mix.cu, in order of preference: FRAME (every tile
+# of `bm` rows in one frame: one TMA box a tap) and CPASYNC (any N: 16-byte
+# cp.async)
+MIX_LOADERS = ("FRAME", "CPASYNC")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def ff_mix_loaders(n: int, bm: int) -> list:
+    """The loaders of A that a bf16 mix of `n` rows a frame admits in tiles
+    of `bm` rows, best first."""
+    return ["FRAME", "CPASYNC"] if n % bm == 0 else ["CPASYNC"]
+
+
+def ff_mix_plan(shape, sms: int) -> dict:
+    """The plan of `csrc/mix.cu`'s bf16 launch for y `shape` (B, F, N, C) on
+    a card with `sms` SMs, which `asva_ff_mix` is given and checks: column
+    tile `tn` (160 where it divides C, else 64), rows a block `bm` (128, or
+    64 when 128-row blocks would not fill the card: K-gemm's rule) and the
+    best loader of A the shape admits (`ff_mix_loaders`)."""
+    b, f, n, c = shape
+    tn = 160 if c % 160 == 0 else 64
+    bm = 128 if -(-(b * f * n) // 128) * (c // tn) >= sms else 64
+    return dict(tn=tn, bm=bm, path=ff_mix_loaders(n, bm)[0])
+
+
+def ff_mix_launch(y, kh, kp, kc, bias, plan: Optional[dict] = None):
+    """B7's forward: one launch of `csrc/mix.cu` on a CUDA tensor (bf16 on
+    `plan`, `ff_mix_plan`'s by default), `ff_mix_plain` on a CPU one."""
     if y.device.type == "cpu":
         return ff_mix_plain(y, kh, kp, kc, bias)
     if y.dim() != 4:
@@ -516,10 +550,11 @@ def _ff_mix_fwd(y, kh, kp, kc, bias):
     bias = bias.reshape(-1)
     lib = _prepare(y, bias)
     _check_shape("bias", bias, (c,))
-    tile_k = 32 if y.dtype == torch.bfloat16 else 16
+    tile_k = 64 if y.dtype == torch.bfloat16 else 16
     if c % tile_k:
         raise ValueError(f"K-mix takes a channel count that is a multiple of "
-                         f"{tile_k} for {y.dtype}, got {c}")
+                         f"{tile_k} for {y.dtype} (bf16: its 64-deep K tiles "
+                         f"and 64-wide column tiles), got {c}")
     for name, w in (("kh", kh), ("kp", kp), ("kc", kc)):
         # a column block of a Linear(3C, C) weight is read in place
         _check_shape(name, w, (c, c))
@@ -528,11 +563,18 @@ def _ff_mix_fwd(y, kh, kp, kc, bias):
             raise ValueError(f"{name}: needs {y.dtype} on {y.device} with "
                              "unit column stride, a row stride that is a "
                              "multiple of 8 and 16-byte alignment")
+    tn = bm = path = 0
+    if y.dtype == torch.bfloat16:
+        if plan is None:
+            plan = ff_mix_plan(y.shape, _sm_count(y.device.index))
+        tn, bm, path = (plan["tn"], plan["bm"],
+                        MIX_LOADERS.index(plan["path"]))
     out = torch.empty_like(y)
     rc = lib.mix.asva_ff_mix(
-        _DTYPES[y.dtype], b, f, n, c, y.data_ptr(), kh.data_ptr(),
-        kp.data_ptr(), kc.data_ptr(), kh.stride(0), kp.stride(0),
-        kc.stride(0), bias.data_ptr(), out.data_ptr(), _stream(y))
+        _DTYPES[y.dtype], b, f, n, c, tn, bm, path, y.data_ptr(),
+        kh.data_ptr(), kp.data_ptr(), kc.data_ptr(), kh.stride(0),
+        kp.stride(0), kc.stride(0), bias.data_ptr(), out.data_ptr(),
+        _stream(y))
     _raise_on(lib, rc, "K-mix")
     LAUNCHES["B7"] += 1
     return out
@@ -675,7 +717,7 @@ class _FfMix(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y, kh, kp, kc, bias):
         ctx.save_for_backward(y, kh, kp, kc, bias)
-        return _ff_mix_fwd(y, kh, kp, kc, bias)
+        return ff_mix_launch(y, kh, kp, kc, bias)
 
     @staticmethod
     @torch.autograd.function.once_differentiable

@@ -9,7 +9,10 @@ its own (`csrc/attn_variants.cu`, `csrc/attn_grouped.cu`,
 
   T1   the whole attention sub-layer (LN, q-projection, attention,
        out-projection, residual) in ONE launch, in ten variants of softmax
-       arithmetic and schedule (`VARIANTS`);
+       arithmetic and schedule (`VARIANTS`), on K-gemm's TMA ring and B4's
+       wgmma tile code: the POST class (v2_postnorm, v3_both) is bit-equal
+       to `fused.fused_ln_attn` (B1) and the orders of a class to each
+       other;
   T2f  the flash forward with `group` heads per block, their logits started
        before any softmax, on B4's wgmma tile code (`hopper.cuh`,
        `wgmma.cuh`) with B4's statements per head: o and lse bit-equal to
@@ -120,9 +123,10 @@ def ln_attn_variant_plain(name: str, x, ls, lb, wq, wo, bo, k, v, eps: float,
 
 def t1_supported(c: int, num_heads: int, block_m: int) -> Optional[str]:
     """None when attn_variants.cu takes this geometry, else the reason: the
-    block keeps three C-wide 64-row tiles in shared memory (C <= 320, a
-    multiple of the 64-column weight panel), its head tiles are instantiated
-    for head dims 24-48, and it walks `block_m` rows 64 at a time."""
+    block keeps the q/o tile, the xn tile and a ring of 64-deep weight tiles
+    in shared memory (C <= 320, a multiple of the 64-wide K tile), its head
+    tiles are instantiated for head dims 24-48, and it walks `block_m` rows
+    64 or 128 at a time."""
     if c % num_heads:
         return f"C={c} not divisible by {num_heads} heads"
     if c % 64 or c > T1_MAX_C:

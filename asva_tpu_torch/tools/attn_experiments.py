@@ -23,9 +23,12 @@ hard check: bf16 within 2**-6 of max|plain|, v5_bf16exp within 0.05), and
 beside it the largest difference from B1 with the JAX tool's tolerance for
 that name.  B1 here divides after P V, so v2/v3 are its arithmetic and the
 v0 class differs from it at bf16 rounding: that difference is printed, not
-failed.  Then one timing row per variant and rows-per-block (`--bm`), with
-B1's own time as the first row.  Times are medians of `--n` launches between
-CUDA events, after warm-up.
+failed.  On the card two gates hold the tool to comparing orders only: v2
+and v3 (the POST class) must be B1's bits (`equal_to_b1`), and every order
+of a class the bits of the class's first name (`equal_in_class`: v0 =
+v1_phased = v6_stacksm = v8_pipe, v2 = v3).  Then one timing row per
+variant and rows-per-block (`--bm`), with B1's own time as the first row.
+Times are medians of `--n` launches between CUDA events, after warm-up.
 
 Run on the card: python3 -m asva_tpu_torch.tools.attn_experiments [--n 50]
 [--bm 256]
@@ -83,16 +86,26 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda",
     with torch.no_grad():
         # correctness before timing
         ref = b1()
+        first = {}                      # class -> its first name's output
         for name in variants.VARIANTS:
+            cls = variants.VARIANTS[name][0]
             got = variants.ln_attn_variant(name, *args, 1e-5, heads, bms[0])
             plain = variants.ln_attn_variant_plain(name, *args, 1e-5, heads)
             err = max_abs_diff(got, plain)
             tol = (0.05 if name == "v5_bf16exp"
                    else PLAIN_TOL * plain.float().abs().max().item())
+            first.setdefault(cls, got)
             row = dict(kind="parity", name=name, err_plain=err,
-                       tol_plain=tol, ok=err <= tol)
-            text = (f"  {name}: vs plain max|d|={err:.2e} (tol {tol:.2e}) "
-                    f"{'OK' if row['ok'] else 'FAIL'}")
+                       tol_plain=tol,
+                       equal_in_class=bool(torch.equal(got, first[cls])))
+            row["ok"] = err <= tol and row["equal_in_class"]
+            if device.type == "cuda" and cls == variants.POST:
+                row["equal_to_b1"] = bool(torch.equal(got, ref))
+                row["ok"] = row["ok"] and row["equal_to_b1"]
+            gates = "".join(f" {k} {row[k]}" for k in
+                            ("equal_in_class", "equal_to_b1") if k in row)
+            text = (f"  {name}: vs plain max|d|={err:.2e} (tol {tol:.2e})"
+                    f"{gates} {'OK' if row['ok'] else 'FAIL'}")
             if name != "v4_mmfloor":     # no softmax: never held against B1
                 d = max_abs_diff(got, ref)
                 b1_tol = B1_TOL.get(name, 1e-6)

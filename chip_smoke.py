@@ -13,8 +13,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                 around a wgmma, fatal) and the HGMMA and HMMA instructions
                 of each library's SASS (the toolkit's cuobjdump) are
                 reported; a wgmma source (gemm, attn, attn_bwd,
-                attn_grouped, attn_bwd_fused) without HGMMA, with HMMA or
-                whose SASS cannot be read fails;
+                attn_grouped, attn_bwd_fused, mix, attn_variants) without
+                HGMMA, with HMMA or whose SASS cannot be read fails;
   2. kernels  — each kernel against its plain PyTorch version on the card,
                 fp32 and bf16, with median times of both (CUDA events, after
                 warm-up): B1 fused_ln_attn, B2 fused_ln_attn3, B3
@@ -29,11 +29,19 @@ Phases, in order; any failure exits non-zero and prints no result:
                 229 audio tokens padded to 256 and unpadded, 77 text tokens
                 of 128) with its gradients and the same yardstick; B7
                 fused_ff_mix at FFInflatedConv's shapes on the column blocks
-                of one (C, 3C) weight, with its gradients; the tools' kernels:
+                of one (C, 3C) weight, with its gradients, the loader of A
+                its bf16 launch takes (fused.ff_mix_plan), its time as a
+                CUDA-graph replay (graph_ms) beside every loader the shape
+                admits (loader_ms) and torch.matmul of the pre-gathered (M,
+                3C) A by W^T (a yardstick the port never calls); the tools'
+                kernels:
                 T1 ln_attn_variant, each of its ten names at the tool's shape
                 (G 2, M 12288, Sk 1024, C 320, 64 rows a block) against
                 ln_attn_variant_plain (v5_bf16exp in bf16: 0.05 absolute, the
                 JAX tool's tolerance for it), beside B1 on the same inputs;
+                in bf16 v2_postnorm and v3_both bit for bit B1's output, and
+                in both dtypes every order of a class bit for bit its first
+                name's (v0 = v1_phased = v6_stacksm = v8_pipe);
                 T2f mha_fwd_grouped and T2b mha_bwd_ordered at the five
                 training shapes of tools/mha_phase_bench.py, every supported
                 group size and schedule (groups 1, 2 and b0, b1, b2 must
@@ -171,10 +179,12 @@ KERNELS = {
     "B6": ("asva_tpu/ops/pallas_attn.py:45", "pallas_attn._attention_flat",
            ["asva_tpu_torch/csrc/attn.cu"]),
     "B7": ("asva_tpu/ops/pallas_fused.py:923", "pallas_fused._ff_mix_flat",
-           ["asva_tpu_torch/csrc/mix.cu"]),
+           ["asva_tpu_torch/csrc/mix.cu", "asva_tpu_torch/csrc/hopper.cuh",
+            "asva_tpu_torch/csrc/tma.cuh", "asva_tpu_torch/csrc/wgmma.cuh"]),
     "T1": ("tools/attn_experiments.py:310", "attn_experiments.run_variant",
            ["asva_tpu_torch/csrc/attn_variants.cu",
-            "asva_tpu_torch/csrc/attn_tile.cuh"]),
+            "asva_tpu_torch/csrc/hopper.cuh", "asva_tpu_torch/csrc/tma.cuh",
+            "asva_tpu_torch/csrc/wgmma.cuh"]),
     "T2F": ("tools/mha_phase_bench.py:82", "mha_phase_bench.fwd_flat",
             ["asva_tpu_torch/csrc/attn_grouped.cu",
              "asva_tpu_torch/csrc/hopper.cuh",
@@ -185,6 +195,7 @@ KERNELS = {
              "asva_tpu_torch/csrc/wgmma.cuh"]),
 }
 _GEMM_SOURCES = ["asva_tpu_torch/csrc/gemm.cu", "asva_tpu_torch/csrc/hopper.cuh",
+                 "asva_tpu_torch/csrc/tma.cuh",
                  "asva_tpu_torch/csrc/wgmma.cuh"]
 KERNELS.update({   # K-gemm's four launches inside B1/B2 and B3
     "KG.q": ("asva_tpu/ops/pallas_fused.py:304",
@@ -199,8 +210,9 @@ KERNELS.update({   # K-gemm's four launches inside B1/B2 and B3
                "pallas_fused._ln_geglu_flat: second product + bias + "
                "residual", _GEMM_SOURCES)})
 # the sources whose bf16 products are all wgmma (phase 1 holds their SASS
-# to it); mix.cu and attn_variants.cu are mma.sync
-WGMMA_SOURCES = ("gemm", "attn", "attn_bwd", "attn_grouped", "attn_bwd_fused")
+# to it): every source
+WGMMA_SOURCES = ("gemm", "attn", "attn_bwd", "attn_grouped", "attn_bwd_fused",
+                 "mix", "attn_variants")
 # K-gemm's launches (fused._FORMS): weight rows and contraction per C, LN
 GEMM_FORMS = (("q", 1, 1, True), ("out", 1, 1, False), ("ff1", 8, 1, True),
               ("ff2", 1, 4, False))
@@ -429,6 +441,8 @@ def tool_kernel_rows(gen, dtype):
         r = dict(kernel=kernel, case=case, dtype=dname, max_abs_err=err,
                  tol=rtol, max_abs_ref=scale, ok=err <= rtol and
                  extra.get("equal_to_b4", True)
+                 and extra.get("equal_to_b1", True)
+                 and extra.get("equal_in_class", True)
                  and extra.get("dkdv_equal", True)
                  and (extra.get("dkdv_equal_to_b5", True)
                       or not extra.get("b5_unsplit", False)),
@@ -452,12 +466,19 @@ def tool_kernel_rows(gen, dtype):
                 + [_rand(gen, (g, sk, c), dtype),
                    _rand(gen, (g, sk, c), dtype)])
         b1_ms = time_ms(lambda: fused.fused_ln_attn(*args, 1e-5, HEADS))
-        plain_ms = {}
+        b1_out = fused.fused_ln_attn(*args, 1e-5, HEADS)
+        plain_ms, first = {}, {}
         for name, (cls, _) in variants.VARIANTS.items():
             out = variants.ln_attn_variant(name, *args, 1e-5, HEADS,
                                            T1_BLOCK_M)
             ref = variants.ln_attn_variant_plain(name, *args, 1e-5, HEADS)
             torch.cuda.synchronize()
+            # the orders of a class run the same statements: their bits; the
+            # POST class runs B1's (K-gemm q, B4, K-gemm out) in bf16
+            first.setdefault(cls, out)
+            gates = dict(equal_in_class=bool(torch.equal(out, first[cls])))
+            if cls == variants.POST and dname == "bfloat16":
+                gates["equal_to_b1"] = bool(torch.equal(out, b1_out))
             if cls not in plain_ms:     # one plain timing per class
                 plain_ms[cls] = time_ms(
                     lambda: variants.ln_attn_variant_plain(
@@ -468,9 +489,9 @@ def tool_kernel_rows(gen, dtype):
                 plain_ms[cls], _attn_flops(g, m, sk, c),
                 _nbytes(*_tensors(args), out), b1_ms,
                 tol=0.05 if (name, dname) == ("v5_bf16exp", "bfloat16")
-                else None)
+                else None, **gates)
             del out, ref
-        del args
+        del args, b1_out, first
         torch.cuda.empty_cache()
 
         # T2f and T2b at the five training shapes
@@ -621,6 +642,37 @@ def gemm_rows(gen):
     return rows
 
 
+def mix_extra(args, dname):
+    """B7's row fields beside `ms` (the wrapper's call between CUDA events,
+    as every row): `graph_ms`, the same call as a CUDA-graph replay (the
+    device's time); in bf16 the plan of its launch (fused.ff_mix_plan: the
+    loader of A and the tile), every loader of A the shape admits timed as
+    a graph replay on that plan (`loader_ms`), and torch.matmul of the
+    pre-gathered (M, 3C) A [frame 0 | previous frame | frame] by W^T (C,
+    3C)^T, also a graph replay: cuBLAS's bare product, a yardstick the port
+    never calls (None in fp32)."""
+    import torch
+    from asva_tpu_torch.ops import fused
+    y, kh, kp, kc, bias = args
+    b, f, n, c = y.shape
+    extra = dict(loader="fp32 FMA", matmul_ms=None)
+    with torch.no_grad():
+        extra["graph_ms"] = graph_ms(lambda: fused.fused_ff_mix(*args))
+        if dname == "bfloat16":
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            plan = fused.ff_mix_plan(tuple(y.shape), sms)
+            extra.update(loader=plan["path"], plan=plan, loader_ms={
+                p: graph_ms(lambda: fused.ff_mix_launch(
+                    *args, dict(plan, path=p)))
+                for p in fused.ff_mix_loaders(n, plan["bm"])})
+            a3 = torch.cat([y[:, :1].expand_as(y), torch.cat(
+                [y[:, :1], y[:, :-1]], 1), y], -1).reshape(-1, 3 * c)
+            wt = torch.cat([kh, kp, kc], 1).t()
+            extra["matmul_ms"] = graph_ms(lambda: torch.matmul(a3, wt))
+            del a3, wt
+    return extra
+
+
 def _tensors(x):
     import torch
     if torch.is_tensor(x):
@@ -721,6 +773,8 @@ def phase_kernels(report):
                     row["plain_ms"] = time_ms(lambda: plain(*args), 1, 3)
                 if kernel in ("B4", "B5", "B6") and dname == "bfloat16":
                     row["library_ms"] = sdpa_ms(kernel, args)
+                if kernel == "B7":
+                    row.update(mix_extra(args, dname))
                 if kernel not in ("B4", "B5"):
                     g_err, g_tol, _ = gradient_check(wrapper, plain, args,
                                                      dname)
@@ -731,8 +785,16 @@ def phase_kernels(report):
                         f"{row['grad_tol']:.3e})" if "grad_tol" in row else "")
                 lib = (f"  sdpa {row['library_ms']:.3f} ms"
                        if row["library_ms"] is not None else "")
+                if kernel == "B7":
+                    lib += (f"  graph {row['graph_ms']:.4f} ms  loader "
+                            f"{row['loader']}")
+                    for p, t in row.get("loader_ms", {}).items():
+                        lib += f"  {p} {t:.4f}"
+                    if row["matmul_ms"] is not None:
+                        lib += (f"  matmul {row['matmul_ms']:.4f} ms "
+                                "(yardstick)")
                 log(f"  {kernel} {dname:8s} {label:44s} err {err:.3e} (tol "
-                    f"{tol:.3e}){grad}  kernel {row['ms']:8.3f} ms  plain "
+                    f"{tol:.3e}){grad}  kernel {row['ms']:8.4f} ms  plain "
                     f"{row['plain_ms']:8.3f} ms  bound {row['bound_ms']:.4f} "
                     f"ms ({row['bound_by']}){lib}  "
                     f"{'ok' if row['ok'] else 'FAIL'}")
@@ -1842,8 +1904,13 @@ def main() -> int:
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
             timed_case=f"{main['case']} bf16")
-        if "matmul_ms" in main:          # K-gemm: the product yardstick
-            entry.update(matmul_ms=main["matmul_ms"], tflops=main["tflops"])
+        if "matmul_ms" in main:          # K-gemm, B7: the product yardstick
+            entry["matmul_ms"] = main["matmul_ms"]
+            if "tflops" in main:
+                entry["tflops"] = main["tflops"]
+        if "loader" in main:             # B7: the loader of A, graph times
+            entry.update(loader=main["loader"], graph_ms=main["graph_ms"],
+                         loader_ms=main["loader_ms"])
         if "production_ms" in main:      # the tools' kernels: every variant
             entry["production_ms"] = main["production_ms"]
             entry["ms_by_case"] = {r["case"].strip(): r["ms"] for r in mine

@@ -15,11 +15,13 @@ every position of the last K/V tile), ragged token counts that are not tile
 multiples, head dims 40/80/96/160, B5's split dK/dV path for few K/V rows,
 o bit-identical with and without lse and on recompute, and the rule that a
 wrapper given an input that requires grad returns a tensor with a grad_fn;
-for the tools' kernels every variant name, group size and schedule, the
-rule that excludes an instantiation, T2f's bit equality with B4 at every
-group (head dim 160 in group 2 and groups that do not divide H included),
-and T2b's dK/dV, bit-equal across its orders and to B5's where B5 runs its
-dK/dV kernel unsplit.
+B7 on every loader of A (ff_mix_launch), on tap matrices of their own and
+with rows independent of the launch; for the tools' kernels every variant
+name, group size and schedule, T1's orders bit-equal within a class and its
+POST class bit-equal to B1, the rule that excludes an instantiation, T2f's
+bit equality with B4 at every group (head dim 160 in group 2 and groups
+that do not divide H included), and T2b's dK/dV, bit-equal across its
+orders and to B5's where B5 runs its dK/dV kernel unsplit.
 
 Tolerances: fp32 1e-4 times max(1, max|plain|) (fp32 products; summation
 order and the online softmax differ); bf16 2**-6 times max|plain| (two bf16
@@ -598,6 +600,83 @@ def test_b7_frame0_clamp_on_card(dev):
     assert torch.allclose(curr, y, atol=1e-6)
 
 
+# B7's loaders of A (fused.MIX_LOADERS), each launched on a shape that admits
+# it: FRAME (every tile in one frame) and CPASYNC (any N: tiles across
+# frames and clips, ragged N); the first of a shape's loaders is the one
+# ff_mix_plan picks on a 132-SM card
+B7_LOADER_SHAPES = [
+    ((2, 12, 1024, 320), "FRAME"),    # the four SD1.5 levels of a request
+    ((2, 12, 1024, 320), "CPASYNC"),
+    ((2, 12, 256, 640), "FRAME"),
+    ((2, 12, 64, 1280), "FRAME"),     # 64-row tiles: one frame each
+    ((2, 12, 64, 1280), "CPASYNC"),
+    ((2, 12, 16, 1280), "CPASYNC"),   # N 16: 4 frames a tile
+    ((4, 12, 64, 1280), "CPASYNC"),   # N 64 in 128-row tiles, across clips
+    ((2, 5, 37, 320), "CPASYNC"),     # ragged N
+    ((3, 4, 24, 640), "CPASYNC"),     # N 24: tiles across frames and clips
+    ((1, 1, 128, 64), "FRAME"),       # one frame: every tap is the row
+    ((1, 1, 200, 64), "CPASYNC"),
+]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape,loader", B7_LOADER_SHAPES)
+def test_b7_loaders_on_card(dev, dtype, shape, loader):
+    """ff_mix_launch on the given loader of A against ff_mix_plain, on the
+    column blocks of one (C, 3C) weight; in bf16 the bits of the launch on
+    ff_mix_plan's loader (the loaders fill the same tiles for the same
+    products)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b, f, n, c = shape
+    y = _r(gen, shape, dtype)
+    w = _r(gen, (c, 3 * c), dtype, (3 * c) ** -0.5)
+    bias = _r(gen, (c,), dtype, 0.1)
+    taps = (w[:, :c], w[:, c:2 * c], w[:, 2 * c:])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fused.ff_mix_plan(shape, sms)
+    assert loader in fused.ff_mix_loaders(n, plan["bm"])
+    with torch.no_grad():
+        out = fused.ff_mix_launch(y, *taps, bias, dict(plan, path=loader))
+        ref = fused.ff_mix_plain(y, *taps, bias)
+        best = fused.fused_ff_mix(y, *taps, bias)
+    _check(out, ref, dtype)
+    assert torch.equal(out, best)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 12, 64, 1280), (2, 5, 37, 320)])
+def test_b7_separate_tap_matrices_on_card(dev, dtype, shape):
+    """Three tap matrices of their own give the bits of the column blocks of
+    one weight (each tap one tensor map, with its own row stride)."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    c = shape[-1]
+    y = _r(gen, shape, dtype)
+    w = _r(gen, (c, 3 * c), dtype, (3 * c) ** -0.5)
+    bias = _r(gen, (c,), dtype, 0.1)
+    blocks = (w[:, :c], w[:, c:2 * c], w[:, 2 * c:])
+    own = tuple(t.contiguous() for t in blocks)
+    with torch.no_grad():
+        got = fused.fused_ff_mix(y, *own, bias)
+        want = fused.fused_ff_mix(y, *blocks, bias)
+    assert torch.equal(got, want)
+
+
+def test_b7_rows_do_not_depend_on_the_launch(dev):
+    """No split-K and a tile width fixed by C: clip 0's rows are the same
+    bits whether the launch holds 1 or 4 clips (other grids, warpgroups a
+    block and loaders: FRAME with 64-row tiles against CPASYNC with 128)."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    b, f, n, c = 4, 12, 64, 1280
+    y = _r(gen, (b, f, n, c), torch.bfloat16)
+    w = _r(gen, (c, 3 * c), torch.bfloat16, (3 * c) ** -0.5)
+    bias = _r(gen, (c,), torch.bfloat16, 0.1)
+    taps = (w[:, :c], w[:, c:2 * c], w[:, 2 * c:])
+    with torch.no_grad():
+        whole = fused.fused_ff_mix(y, *taps, bias)
+        one = fused.fused_ff_mix(y[:1].contiguous(), *taps, bias)
+    assert torch.equal(whole[:1], one)
+
+
 # ------------------------------------------------ the kernel tools' kernels
 
 def _t1_args(gen, g, m, sk, c, dtype):
@@ -628,6 +707,33 @@ def test_t1_on_card(dev, dtype, name, c, heads, m, sk, block_m):
         assert (got.float() - want.float()).abs().max().item() <= 0.05
     else:
         _check(got, want, dtype)
+
+
+T1_CLASSES = {"PRE": ["v0", "v1_phased", "v6_stacksm", "v8_pipe"],
+              "POST": ["v2_postnorm", "v3_both"]}
+
+
+@pytest.mark.parametrize("g,c,heads,m,sk,block_m", [
+    (2, 320, 8, 200, 150, 128),
+    (2, 64, 2, 64, 64, 64),
+    (2, 192, 4, 70, 200, 64),
+    (2, 320, 8, 12288, 1024, 64),   # the tool's shape, one warpgroup a block
+    (2, 320, 8, 12288, 1024, 128),  # ... two
+])
+def test_t1_orders_bit_equal_on_card(dev, g, c, heads, m, sk, block_m):
+    """bf16: the orders of a class are one arithmetic (v0 = v1_phased =
+    v6_stacksm = v8_pipe, v2_postnorm = v3_both), and the POST class is
+    B1's (fused_ln_attn: K-gemm q, B4, K-gemm out) bit for bit."""
+    from asva_tpu_torch.ops import variants
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    args = _t1_args(gen, g, m, sk, c, torch.bfloat16)
+    with torch.no_grad():
+        b1 = fused.fused_ln_attn(*args, 1e-5, heads)
+        for names in T1_CLASSES.values():
+            outs = [variants.ln_attn_variant(n, *args, 1e-5, heads, block_m)
+                    for n in names]
+            assert all(torch.equal(o, outs[0]) for o in outs[1:]), names
+        assert torch.equal(outs[0], b1)
 
 
 def test_t1_unsupported_geometry_raises(dev):

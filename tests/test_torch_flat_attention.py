@@ -245,6 +245,25 @@ def _meta(*shape):
     return torch.empty(shape, device="meta")
 
 
+@pytest.mark.parametrize("shape,plan,loaders", [
+    # the SD1.5 levels of a request (2 CFG clips of 12 frames) on 132 SMs
+    ((2, 12, 1024, 320), (160, 128, "FRAME"), 2),
+    ((2, 12, 64, 1280), (160, 64, "FRAME"), 2),
+    ((2, 12, 16, 1280), (160, 64, "CPASYNC"), 1),
+    ((4, 12, 64, 1280), (160, 128, "CPASYNC"), 1),  # a training batch
+    ((2, 5, 37, 320), (160, 64, "CPASYNC"), 1),
+    ((2, 4, 24, 64), (64, 64, "CPASYNC"), 1),
+])
+def test_b7_plan(shape, plan, loaders):
+    """ff_mix_plan, the plan csrc/mix.cu is launched on: column tile, rows a
+    block and the best of the loaders of A the shape admits."""
+    got = fused.ff_mix_plan(shape, 132)
+    assert (got["tn"], got["bm"], got["path"]) == plan
+    admitted = fused.ff_mix_loaders(shape[2], got["bm"])
+    assert admitted[0] == got["path"] and len(admitted) == loaders
+    assert admitted[-1] == "CPASYNC"
+
+
 def test_cpu_path_counts_no_launch(rng):
     before = dict(fused.LAUNCHES)
     assert "B6" in before and "B7" in before

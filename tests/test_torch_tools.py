@@ -234,7 +234,7 @@ def test_attn_experiments_main_on_cpu(capsys):
     parity = [r for r in rows if r["kind"] == "parity"]
     times = [r for r in rows if r["kind"] == "time"]
     assert [r["name"] for r in parity] == NAMES
-    assert all(r["ok"] for r in parity)
+    assert all(r["ok"] and r["equal_in_class"] for r in parity)
     assert "err_b1" not in parity[NAMES.index("v4_mmfloor")]
     assert times[0]["name"].startswith("B1")
     assert [r["name"] for r in times[1:]] == NAMES
