@@ -6,10 +6,22 @@ dict (the reference's checkpoints, or asva_tpu's
 `convert/jax_to_torch.py:export_state_dict(params, <key map>)` output) loads
 with `load_state_dict(strict=True)`.
 
-One layout fix is needed beyond that export's own re-layout: 1x1
+Shape fixes beyond that export's own re-layout (`_adapt`): 1x1
 convolutions that asva_tpu holds as Dense (the VAE's quant_conv /
 post_quant_conv) come out as (o, i) and are held here, as in the
-reference checkpoints, as (o, i, 1, 1).
+reference checkpoints, as (o, i, 1, 1); a Linear stored as a 1x1 conv and
+an (n,) vector stored as (1, n) are squeezed.
+
+The published files of the metric nets and the audio tower name their keys
+in a second key space, which the key maps of asva_tpu/convert/
+torch_to_jax.py also accept (their later candidates): the raw
+`imagebind_huge.pth` (every modality, `modality_*.<modality>.` prefixes,
+the audio stem as `rgbt_stem` or `audio_stem`), pytorch-fid's InceptionV3
+with its classifier, and the stylegan-v TorchScript I3D's branch names.
+`to_port_keys` renames such a state dict into the port's key space through
+one alias table per space (`SOURCE_SPACES`) and `load_source_state` loads
+it strictly.  `detect_bn_eps` / `extract_state_and_eps` read a TorchScript
+blob (the port's copy of asva_tpu/convert/torchscript.py).
 
 The networks with BatchNorm (AVSync classifier, I3D, InceptionV3) keep
 their running statistics in flax's `batch_stats` collection, outside
@@ -26,11 +38,28 @@ An optax AdamW state exported the same way loads into the port's optimizer
 """
 from __future__ import annotations
 
-from typing import Dict
+import re
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+
+
+def _adapt(t: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """The shape adaptations of asva_tpu/convert/torch_to_jax.py:47-79 in
+    torch layout: a Linear or 1x1 conv stored as the other, a (1, n) vector
+    for an (n,) one.  Both sides are torch layouts, so a Linear weight is
+    never transposed (a square one would pass a shape check either way)."""
+    if tuple(t.shape) == shape:
+        return t
+    if len(shape) == 4 and t.dim() == 2 and shape[2:] == (1, 1):
+        return t[:, :, None, None]
+    if len(shape) == 2 and t.dim() == 4 and tuple(t.shape[2:]) == (1, 1):
+        return t[:, :, 0, 0]
+    if len(shape) == 1 and t.dim() == 2 and t.shape[0] == 1:
+        return t[0]
+    return t
 
 
 def load_exported(module: nn.Module, state: Dict[str, np.ndarray],
@@ -43,11 +72,9 @@ def load_exported(module: nn.Module, state: Dict[str, np.ndarray],
         t = (value if torch.is_tensor(value)
              else torch.from_numpy(np.array(value)))  # a writable copy
         target = own.get(key)
-        if (target is not None and target.dim() == 4 and t.dim() == 2
-                and tuple(target.shape[2:]) == (1, 1)):
-            t = t[:, :, None, None]
         if target is not None:
-            t = t.to(dtype=target.dtype, device=target.device)
+            t = _adapt(t, tuple(target.shape)).to(dtype=target.dtype,
+                                                   device=target.device)
         tensors[key] = t
     for key, value in own.items():
         if key.endswith(".num_batches_tracked") and key not in tensors:
@@ -92,3 +119,165 @@ def load_exported_sync_state(state, variables: Dict[str, np.ndarray],
     load_exported(state.classifier, variables)
     load_exported_adam_state(state.optimizer, mu, nu, count)
     state.step = int(step)
+
+
+# ---------------------------------------------------------------------------
+# second source key spaces -> the port's key space
+# ---------------------------------------------------------------------------
+
+_IB_PARTS = ("preprocessors", "trunks", "heads", "postprocessors")
+
+
+def _imagebind(modality: str, export_prefixes: Optional[dict] = None):
+    """Keep one modality of a raw imagebind_huge state dict; with
+    `export_prefixes` ({part: prefix}) its `modality_<part>s.<modality>.`
+    prefixes become those of the port's module."""
+    def rename(key):
+        m = re.match(r"^modality_(\w+?)\.(\w+)\.", key)
+        if m is None:
+            return key
+        if m.group(1) not in _IB_PARTS or m.group(2) != modality \
+                or m.group(1) == "postprocessors":
+            return None               # another modality, or the logit scale
+        if export_prefixes is None:
+            return key
+        return export_prefixes[m.group(1)] + key[m.end():]
+    return rename
+
+
+_AUDIO_EXPORT = {"preprocessors": "preprocessor.", "trunks": "trunk.",
+                 "heads": "head."}
+
+
+def _audio_key(key):
+    key = _imagebind("audio", _AUDIO_EXPORT)(key)
+    if key is None or key.startswith("postprocessor."):
+        return None
+    return key.replace(".audio_stem.", ".rgbt_stem.")
+
+
+def _first_present(alternatives):
+    """Rename `old` to `new` only where the state has no `new` key (the
+    key maps' later candidates)."""
+    def fix(state):
+        for old, new in alternatives:
+            for key in [k for k in state if old in k]:
+                target = key.replace(old, new)
+                if target not in state:
+                    state[target] = state.pop(key)
+        return state
+    return fix
+
+
+# I3D: pytorch-i3d's names are the port's; the stylegan-v blob's differ
+_I3D_ALIASES = ((".batch3d.", ".bn."), (".b1.0.", ".b1a."),
+                (".b1.1.", ".b1b."), (".b2.0.", ".b2a."),
+                (".b2.1.", ".b2b."), (".b3.1.", ".b3b."))
+
+
+def _i3d_key(key):
+    for old, new in _I3D_ALIASES:
+        key = key.replace(old, new)
+    return key
+
+
+# space -> (key rename or None to drop, whole-state fix, keys that may be
+# missing after the rename: a layer the reference initialises fresh)
+SOURCE_SPACES = {
+    # asva_tpu/convert/torch_to_jax.py:233-296 (the audio export or the raw
+    # imagebind_huge.pth; the segment tower's final_layer_norm is fresh)
+    "imagebind_audio": (_audio_key, None, ("final_layer_norm.",)),
+    # :340-363: the stem conv at proj.1 (after PadIm2Video) or proj.0
+    "imagebind_vision": (_imagebind("vision"), _first_present(
+        [(".rgbt_stem.proj.0.", ".rgbt_stem.proj.1.")]), ()),
+    # :366-385: the final LayerNorm in the head or after the trunk
+    "imagebind_text": (_imagebind("text"), _first_present(
+        [("modality_trunks.text.post_transformer_layer.0.",
+          "modality_heads.text.proj.0.")]), ()),
+    # :313 pytorch-fid / torchvision names; the 1008-way classifier and
+    # torchvision's auxiliary head are not part of the feature net
+    "inception_v3": (lambda k: None if k.startswith(("fc.", "AuxLogits."))
+                     else k, None, ()),
+    # :299 pytorch-i3d or the stylegan-v TorchScript blob
+    "i3d": (_i3d_key, None, ()),
+}
+
+
+def to_port_keys(state: Dict, space: str) -> Tuple[Dict, tuple]:
+    """(the state dict renamed into the port's key space through the alias
+    table of `space`, the key prefixes that may be missing from it)."""
+    rename, fix, may_miss = SOURCE_SPACES[space]
+    out = {}
+    for key, value in state.items():
+        new = rename(key)
+        if new is not None:
+            out[new] = value
+    return (fix(out) if fix else out), may_miss
+
+
+def load_source_state(module: nn.Module, state: Dict,
+                      space: str) -> nn.Module:
+    """Rename `state` from `space` into the port's keys, adapt shapes and
+    load it strictly: an unexpected key, or a missing one outside the
+    space's prefixes that may be missing, raises KeyError."""
+    state, allowed = to_port_keys(state, space)
+    own = {k for k in module.state_dict()
+           if not k.endswith(".num_batches_tracked")}
+    missing = sorted(own - set(state))
+    unexpected = sorted(set(state) - set(module.state_dict()))
+    bad = [k for k in missing if not k.startswith(allowed)]
+    if unexpected or bad:
+        raise KeyError(f"{space}: the state does not fit the module: "
+                       f"missing {bad[:8]}, unexpected {unexpected[:8]}")
+    return load_exported(module, state, strict=not missing)
+
+
+# ---------------------------------------------------------------------------
+# TorchScript blobs (asva_tpu/convert/torchscript.py)
+# ---------------------------------------------------------------------------
+
+def detect_bn_eps(module) -> Optional[float]:
+    """Best-effort BatchNorm epsilon of a torch.jit module: the `.eps`
+    attributes of its (recursively) scripted BatchNorm submodules, else the
+    constants feeding the 8th argument of aten::batch_norm /
+    aten::instance_norm in the inlined graph (a traced module bakes eps as
+    prim::Constant).  The value if all call sites agree, the most common
+    one if not (ties: the smallest), None if no BatchNorm is found."""
+    values = []
+    stack = [module]
+    while stack:
+        m = stack.pop()
+        stack.extend(m.children())
+        eps = getattr(m, "eps", None)
+        if isinstance(eps, float):
+            values.append(eps)
+    if not values:
+        try:
+            graph = str(module.inlined_graph)
+        except Exception:
+            graph = ""
+        consts = {
+            name: float(val)
+            for name, val in re.findall(
+                r"(%[\w.]+)\s*:\s*float\s*=\s*prim::Constant\[value="
+                r"([0-9eE.+-]+)\]", graph)
+        }
+        for call in re.finditer(
+                r"aten::(?:batch_norm|instance_norm)\(([^)]*)\)", graph):
+            args = [a.strip() for a in call.group(1).split(",")]
+            if len(args) >= 8 and args[7] in consts:
+                values.append(consts[args[7]])
+    if not values:
+        return None
+    counts = {}
+    for v in values:
+        counts[v] = counts.get(v, 0) + 1
+    return sorted(counts, key=lambda v: (-counts[v], v))[0]
+
+
+def extract_state_and_eps(blob_path: str):
+    """(float32 state dict, detected BatchNorm eps or None) of a jit
+    blob."""
+    module = torch.jit.load(blob_path, map_location="cpu")
+    state = {k: v.float() for k, v in module.state_dict().items()}
+    return state, detect_bn_eps(module)

@@ -10,6 +10,7 @@ zero-padded to 204 and normalized (mean -4.268, std 9.138).
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -100,3 +101,56 @@ def waveform_to_mel(waveform: torch.Tensor, sample_rate: int = 16000,
     else:
         mel = mel[:, :target_length]
     return ((mel - mean) / std)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# Provenance (asva_tpu/ops/mel.py:134-191): the fbank is implemented from
+# the Kaldi/torchaudio parameters above; bit parity with torchaudio is
+# proven only where the recorded goldens fixture exists
+# (tools/make_mel_goldens.py).  Metric JSONs carry this label.
+
+def golden_waveforms():
+    """Deterministic golden test signals, as asva_tpu draws them."""
+    rng = np.random.default_rng(1234)
+    sr, n = 16000, 32000
+    t = np.arange(n) / sr
+    return sr, {
+        "noise": (rng.standard_normal(n) * 0.1).astype(np.float32),
+        "tones": (0.5 * np.sin(2 * np.pi * 440 * t)
+                  + 0.2 * np.sin(2 * np.pi * 3210 * t)).astype(np.float32),
+        "chirp": np.sin(2 * np.pi * (200 * t + 1900 * t * t)).astype(
+            np.float32),
+        "walk": np.clip(rng.standard_normal(n).cumsum() * 1e-3,
+                        -1, 1).astype(np.float32),
+    }
+
+
+def goldens_fixture_path() -> str:
+    env = os.environ.get("ASVA_MEL_GOLDENS")
+    if env:
+        return env
+    here = os.path.dirname(os.path.abspath(__file__))
+    return os.path.normpath(os.path.join(here, "..", "..", "tests",
+                                         "fixtures", "mel_goldens.npz"))
+
+
+@functools.lru_cache(maxsize=1)
+def goldens_status() -> str:
+    """'verified' iff fbank matches the recorded torchaudio goldens here,
+    'MISMATCH ...' if the fixture disagrees, else 'unverified (...)'."""
+    path = goldens_fixture_path()
+    if not os.path.isfile(path):
+        return ("unverified (torchaudio goldens fixture absent; run "
+                "tools/make_mel_goldens.py where torchaudio exists)")
+    goldens = np.load(path)
+    sr, waves = golden_waveforms()
+    worst = 0.0
+    for name, wave in waves.items():
+        if name not in goldens:
+            return f"MISMATCH (fixture missing key {name})"
+        got = fbank(torch.from_numpy(wave), sample_rate=sr).numpy()
+        if got.shape != goldens[name].shape:
+            return f"MISMATCH (shape {got.shape} vs {goldens[name].shape})"
+        worst = max(worst, float(np.abs(got - goldens[name]).max()))
+    return ("verified vs torchaudio goldens" if worst < 1e-4
+            else f"MISMATCH vs torchaudio goldens (max abs diff {worst:g})")

@@ -31,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .convert import load_exported
+from .convert import load_exported, load_source_state, to_port_keys
 from .diffusion.schedules import DiffusionSchedule
 from .models.avsync import AVSyncClassifier
 from .models.clip_text import CLIPTextConfig, CLIPTextModel
@@ -121,11 +121,13 @@ def _build(factory, device, dtype, seed: int, randomize_all: bool,
     return module.to(dtype).eval().requires_grad_(False)
 
 
-def _weights(weights_dir: Optional[str], label: str, graft: bool = False):
+def _weights(weights_dir: Optional[str], label: str, graft: bool = False,
+             space: Optional[str] = None):
     """The `load` step of `_build` for `weights_dir` (None: no step)."""
     if not weights_dir:
         return None
-    return lambda module: load_weights(module, weights_dir, label, graft)
+    return lambda module: load_weights(module, weights_dir, label, graft,
+                                       space)
 
 
 def build_unet(config: UNet3DConfig = UNet3DConfig(), device="cuda",
@@ -157,10 +159,16 @@ def build_audio_encoder(n_segment: int = 12,
                         randomize_all: bool = False,
                         weights_dir: Optional[str] = None
                         ) -> SegmaskAudioEncoder:
+    """The segment audio tower.  `weights_dir`: the reference's
+    audio_encoder export (a directory, a file, or the port's `.pt`) or the
+    raw `imagebind_huge.pth`, whose other modalities are dropped and whose
+    missing final_layer_norm keeps its init (the reference initialises it
+    fresh)."""
     cfg = config or ImageBindAudioConfig()
     return _build(lambda: SegmaskAudioEncoder(cfg, n_segment), device, dtype,
                   seed, randomize_all,
-                  load=_weights(weights_dir, "audio_encoder"))
+                  load=_weights(weights_dir, "audio_encoder",
+                                space="imagebind_audio"))
 
 
 def _find_weights(path: str) -> Optional[str]:
@@ -209,18 +217,24 @@ def _graft_keys(module: nn.Module):
 
 
 def load_weights(module: nn.Module, weights_dir: str, label: str,
-                 graft: bool = False) -> None:
+                 graft: bool = False, space: Optional[str] = None) -> None:
     """Load the weights that `weights_dir` names into `module`, strictly.
     With `graft` (the UNet) a file may instead lack exactly the
     `_temp`/`_audio` keys, which keep the module's values; any other
-    missing key, or any unexpected one, raises.  A path that holds no
-    weights keeps the module as it is, with a warning."""
+    missing key, or any unexpected one, raises.  `space`: a second source
+    key space the file may be in (`convert.SOURCE_SPACES`), renamed before
+    the strict load.  A path that holds no weights keeps the module as it
+    is, with a warning."""
     path = resolve_weights(weights_dir)
     if path is None:
         log.warning("%s: no weights under %s — seeded random init", label,
                     weights_dir)
         return
     state = load_torch_state(path)
+    if space is not None:
+        load_source_state(module, state, space)
+        log.info("%s: loaded %s", label, path)
+        return
     strict = True
     if graft:
         own = set(module.state_dict())
@@ -309,11 +323,6 @@ def build_avsync_classifier(weights_dirs=None, device="cuda",
                   train=train, gain=_RELU_GAIN, load=load if files else None)
 
 
-_I3D_ALIASES = ((".batch3d.", ".bn."), (".b1.0.", ".b1a."),
-                (".b1.1.", ".b1b."), (".b2.0.", ".b2a."),
-                (".b2.1.", ".b2b."), (".b3.1.", ".b3b."))
-
-
 def build_i3d_classifier(num_classes: int = 400,
                          weights_path: Optional[str] = None,
                          bn_eps: float = 1e-5, device="cuda",
@@ -329,11 +338,8 @@ def build_i3d_classifier(num_classes: int = 400,
         if weights_path:
             log.warning("i3d: %s missing — random init", weights_path)
         return model, None
-    state = {}
-    for key, value in load_torch_state(weights_path).items():
-        for old, new in _I3D_ALIASES:   # the stylegan-v blob's names
-            key = key.replace(old, new)
-        state[key] = value
+    # pytorch-i3d's names, or the stylegan-v blob's
+    state, _ = to_port_keys(load_torch_state(weights_path), "i3d")
     if num_classes != 400:
         state.pop("logits.conv3d.weight", None)
         state.pop("logits.conv3d.bias", None)

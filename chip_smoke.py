@@ -122,6 +122,24 @@ Phases, in order; any failure exits non-zero and prints no result:
                 restores parameters, buffers and optimizer state bit for
                 bit; an fp32 step at batch 1, repeated from the same state,
                 gives the same loss and parameters bit for bit.
+  9. files    — generation and evaluation from files: a 256x256 PNG and a
+                stereo 44.1 kHz int16 wav of 6.5 s written to a temporary
+                directory; pipelines.generate.generate_videos (3 clips, DDIM
+                5 steps, audio guidance 4.0) on the full-width pipeline of
+                phase 4 in bf16 and in fp32, with batch_clips=True (one call,
+                broadcast_rng) and False (a call per clip): every clip
+                (12, 256, 256, 3) uint8, B2 and B3 launched exactly (UNet
+                calls) x (audio / all transformer blocks) times; in fp32 the
+                two modes within one uint8 level, in bf16 each mode's
+                relative RMS distance from the fp32 video within 1.5x that of
+                the plain sub-layers in bf16 (phase 4's rule); a
+                save_template must raise where the media layer cannot be
+                built (no libav on the card's machine) and write the clips
+                where it can; the frames and the clips' mels then go through
+                eval.harness.evaluate_arrays with phase 6's five nets: every
+                metric finite, RelSync / AlignSync in [0, 1].  Seconds per
+                clip through generate_videos are printed beside phase 4's
+                pipeline call.
 Launch counters are zeroed just before each path run and read just after.
 
 Tolerances (max |kernel - plain| over an output):
@@ -1660,6 +1678,220 @@ def phase_sync(report):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- phase 9 ---
+
+def _write_conditioning(tmp):
+    """A 256x256 PNG and 6.5 s of stereo 44.1 kHz int16 wav (a little more
+    than three 2 s clips: the resampler and the all-channel mean run)."""
+    import numpy as np
+    from PIL import Image
+    from scipy.io import wavfile
+    rng = np.random.default_rng(900)
+    yy, xx = np.mgrid[0:256, 0:256] / 255.0
+    image = np.stack([xx, yy, 0.5 + 0.5 * np.sin(6 * xx + 4 * yy)], -1)
+    image = np.clip(image + 0.05 * rng.standard_normal(image.shape), 0, 1)
+    image_path = os.path.join(tmp, "cond.png")
+    Image.fromarray((image * 255).astype(np.uint8)).save(image_path)
+    t = np.arange(int(6.5 * 44100)) / 44100
+    wave = np.stack([0.5 * np.sin(2 * np.pi * 440 * t),
+                     0.3 * np.sin(2 * np.pi * 97 * t)
+                     + 0.05 * rng.standard_normal(t.shape)], -1)
+    audio_path = os.path.join(tmp, "cond.wav")
+    wavfile.write(audio_path, 44100, (np.clip(wave, -1, 1) * 32767).astype(
+        np.int16))
+    return image_path, audio_path
+
+
+class _Captured:
+    """A pipeline whose float videos are kept (the comparisons are made
+    before generate_videos' uint8 cast)."""
+
+    def __init__(self, pipe):
+        self.pipe, self.videos = pipe, []
+
+    @property
+    def device(self):
+        return self.pipe.device
+
+    def __call__(self, *args, **kw):
+        out = self.pipe(*args, **kw)
+        self.videos.append(out.float().clone())
+        return out
+
+    def video(self):
+        import torch
+        return torch.cat(self.videos)
+
+
+def _unet_blocks(unet):
+    """(audio transformer blocks, transformer blocks) of the UNet: B2 and
+    B3 launches per UNet call on the generation path."""
+    from asva_tpu_torch.models.unet3d.transformer import (
+        SpatioAudioTempTransformerBlock)
+    blocks = [m for m in unet.modules()
+              if isinstance(m, SpatioAudioTempTransformerBlock)]
+    return sum(b.use_audio for b in blocks), len(blocks)
+
+
+def phase_files(report, pipeline_seconds):
+    """generate_videos from a PNG and a wav at full width, both batch_clips
+    modes, then the eval harness's metric step on the frames."""
+    import numpy as np
+    import torch
+    from asva_tpu_torch.data import media
+    from asva_tpu_torch.eval.harness import build_eval_models, evaluate_arrays
+    from asva_tpu_torch.ops.mel import waveform_to_mel
+    from asva_tpu_torch.pipelines.generate import (generate_videos,
+                                                   load_audio_clips_uniformly)
+    from asva_tpu_torch.runtime import load_animation_pipeline
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps, n_clips = 5, 3
+    with tempfile.TemporaryDirectory() as tmp:
+        image_path, audio_path = _write_conditioning(tmp)
+        text = torch.randn((TEXT_TOKENS, 768), generator=_gen(901),
+                           device="cuda")
+        kw = dict(image_path=image_path, audio_path=audio_path,
+                  category_text_encoding=text, image_size=(256, 256),
+                  video_fps=6, video_num_frame=F,
+                  num_clips_per_video=n_clips, num_inference_steps=steps,
+                  sampler="ddim", audio_guidance_scale=4.0,
+                  text_guidance_scale=1.0, seed=7, save_template="")
+        null_text = torch.randn((1, TEXT_TOKENS, 768), device="cuda",
+                                generator=_gen(100))
+        pipes = {dtype: load_animation_pipeline(
+            device="cuda", dtype=dtype, seed=0, randomize_all=True,
+            null_text_encoding=null_text)
+            for dtype in (torch.bfloat16, torch.float32)}
+        n_audio, n_blocks = _unet_blocks(pipes[torch.bfloat16].unet)
+
+        runs, seconds, counts = {}, {}, {}
+        for dtype, pipe in pipes.items():
+            dname = str(dtype).split(".")[-1]
+            for batch in (True, False):
+                mode = f"{dname} {'batched' if batch else 'per-clip'}"
+                rec = _Captured(pipe)
+                torch.cuda.synchronize()
+                reset_counts()
+                t0 = time.perf_counter()
+                out = generate_videos(rec, batch_clips=batch, **kw)
+                torch.cuda.synchronize()
+                seconds[mode] = time.perf_counter() - t0
+                counts[mode] = read_counts()
+                runs[mode] = (out, rec.video())
+        # the reference for the bf16 gate: the bf16 pipeline through the
+        # plain sub-layers, batched
+        rec = _Captured(pipes[torch.bfloat16])
+        with plain_sublayers():
+            generate_videos(rec, batch_clips=True, **kw)
+        plain16 = rec.video()
+
+        refused = None
+        if not media.media_available():   # no libav: the write must refuse
+            try:
+                generate_videos(pipes[torch.bfloat16],
+                                **dict(kw, save_template=os.path.join(
+                                    tmp, "out", "gen")))
+                refused = False
+            except RuntimeError as e:
+                refused = "save_template" in str(e)
+        else:                             # libav here: the clips are written
+            generate_videos(pipes[torch.bfloat16], **dict(
+                kw, save_template=os.path.join(tmp, "out", "gen")))
+            refused = all(os.path.isfile(os.path.join(
+                tmp, "out", f"gen_clip-{k:02d}.mp4"))
+                for k in range(n_clips))
+        waves = load_audio_clips_uniformly(audio_path, F / 6, n_clips)
+    del pipes
+    torch.cuda.empty_cache()
+
+    shape_ok = all(len(out) == n_clips and all(
+        f.shape == (F, 256, 256, 3) and f.dtype == np.uint8
+        and a.shape == (2, 32000) for f, a in out)
+        for out, _ in runs.values())
+    calls = {"batched": steps, "per-clip": steps * n_clips}
+    expected = {mode: {"B2": calls[mode.split(" ", 1)[1]] * n_audio,
+                       "B3": calls[mode.split(" ", 1)[1]] * n_blocks}
+                for mode in runs}
+    counts_ok = all(counts[m]["B2"] == expected[m]["B2"] > 0
+                    and counts[m]["B3"] == expected[m]["B3"] > 0
+                    and counts[m]["B6"] == 0 for m in runs)
+
+    def frames(mode):
+        return np.stack([f for f, _ in runs[mode][0]]).astype(np.int16)
+
+    def agree(a, b):
+        d = np.abs(frames(a) - frames(b))
+        return dict(max_levels=int(d.max()), share_differing=float(
+            (d > 0).mean()))
+    fp32 = agree("float32 batched", "float32 per-clip")
+    bf16 = agree("bfloat16 batched", "bfloat16 per-clip")
+    ref32 = runs["float32 per-clip"][1]
+
+    def rel_rms(v):
+        return ((v - ref32).norm() / ref32.norm()).item()
+    gate = dict(plain_bf16=rel_rms(plain16),
+                batched_bf16=rel_rms(runs["bfloat16 batched"][1]),
+                per_clip_bf16=rel_rms(runs["bfloat16 per-clip"][1]))
+    # fp32: one uint8 level; bf16: phase 4's rule, each mode's relative RMS
+    # distance from the fp32 video within 1.5x the plain bf16 version's
+    agree_ok = (fp32["max_levels"] <= 1
+                and gate["batched_bf16"] <= 1.5 * gate["plain_bf16"]
+                and gate["per_clip_bf16"] <= 1.5 * gate["plain_bf16"])
+
+    # the eval harness's metric step on the returned frames (phase 6's
+    # models), seeded random clips as the ground truth
+    gen = torch.from_numpy(frames("bfloat16 batched").astype(
+        np.float32) / 255.0).cuda()
+    mels = torch.stack([waveform_to_mel(torch.as_tensor(w, device="cuda"))
+                        for w in waves])
+    gt = torch.rand(gen.shape, generator=_gen(902), device="cuda")
+    models = build_eval_models("cuda", torch.float32, seed=0,
+                               randomize_all=True)
+    t0 = time.perf_counter()
+    metrics, per_clip = evaluate_arrays(
+        models, [(gt, mels)], [(gen, mels)], ids=[_prompt_ids(903, 4)[0]],
+        device="cuda")
+    torch.cuda.synchronize()
+    metric_s = time.perf_counter() - t0
+    del models
+    torch.cuda.empty_cache()
+    metrics_ok = (
+        sorted(metrics) == sorted(
+            ["FID", "FVD", "IA_mean", "IA_std", "IT_mean", "IT_std",
+             "RelSync_mean", "RelSync_std", "AlignSync_mean",
+             "AlignSync_std"])
+        and all(math.isfinite(v) for v in metrics.values())
+        and all(len(v) == n_clips and np.isfinite(v).all()
+                and ((v >= 0) & (v <= 1)).all()
+                for k, v in per_clip.items() if k != "IA")
+        and abs(metrics["IA_mean"]) <= 1 + 1e-3
+        and abs(metrics["IT_mean"]) <= 1 + 1e-3)
+
+    per_clip_s = {m: s / n_clips for m, s in seconds.items()}
+    report["files"] = dict(
+        seconds_per_clip=per_clip_s,
+        pipeline_seconds_per_clip=pipeline_seconds, launches=counts,
+        expected_launches=expected, fp32_batched_vs_per_clip=fp32,
+        bf16_batched_vs_per_clip=bf16, bf16_gate=gate,
+        save_template_refused_or_written=refused, metrics=metrics,
+        metric_seconds=metric_s,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        shape_ok=shape_ok, counts_ok=counts_ok, agree_ok=agree_ok,
+        metrics_ok=metrics_ok)
+    log(f"  files: seconds per clip through generate_videos "
+        f"{ {m: round(s, 3) for m, s in per_clip_s.items()} } beside the "
+        f"pipeline call's {[round(s, 3) for s in pipeline_seconds]} "
+        f"(phase 4); launches {counts}; expected {expected}")
+    log(f"  files: fp32 batched vs per-clip {fp32}; bf16 {bf16}; "
+        f"relative RMS from fp32 {gate}; save_template refused without "
+        f"libav (or written with it): {refused}")
+    log(f"  files: metrics {metrics} in {metric_s:.1f} s")
+    if not (shape_ok and counts_ok and agree_ok and refused and metrics_ok):
+        fail(f"files checks: {report['files']}")
+    return counts["bfloat16 batched"], counts["bfloat16 per-clip"]
+
+
 def _kernel_kind(name: str) -> str:
     """Coarse family of a device kernel, from its name."""
     if "(anonymous namespace)::gemm_" in name:
@@ -1864,16 +2096,23 @@ def main() -> int:
     tool_counts = phase_tools(report)
     log("phase 8: sync trainer")
     phase_sync(report)
+    log("phase 9: generation and evaluation from files")
+    batched_counts, per_clip_counts = phase_files(
+        report, report["pipeline"]["seconds_per_clip"])
 
     # launches on each driven path: B1 and B3 run in generation and training
     by_path = {
         "B1": {"unet fuse_blocks=False": b1_counts["B1"],
                "train, 4 steps": train_counts["B1"]},
         "B2": {"pipeline, 3 requests": pipe_counts["B2"],
-               "judge, 3 requests": judge_counts["B2"]},
+               "judge, 3 requests": judge_counts["B2"],
+               "generate_videos, 3 clips batched": batched_counts["B2"],
+               "generate_videos, 3 clips per clip": per_clip_counts["B2"]},
         "B3": {"pipeline, 3 requests": pipe_counts["B3"],
                "train, 4 steps": train_counts["B3"],
-               "judge, 3 requests": judge_counts["B3"]},
+               "judge, 3 requests": judge_counts["B3"],
+               "generate_videos, 3 clips batched": batched_counts["B3"],
+               "generate_videos, 3 clips per clip": per_clip_counts["B3"]},
         "B4": {"train, 4 steps": train_counts["B4"]},
         "B5": {"train, 4 steps": train_counts["B5"]},
         "B6": {"ln=None attention modules": b6_count},
@@ -1886,7 +2125,11 @@ def main() -> int:
         by_path[key] = {"unet fuse_blocks=False": b1_counts[key],
                         "pipeline, 3 requests": pipe_counts[key],
                         "train, 4 steps": train_counts[key],
-                        "judge, 3 requests": judge_counts[key]}
+                        "judge, 3 requests": judge_counts[key],
+                        "generate_videos, 3 clips batched":
+                            batched_counts[key],
+                        "generate_videos, 3 clips per clip":
+                            per_clip_counts[key]}
     kernels = []
     for name, (replaces, tpu, sources) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name

@@ -21,7 +21,9 @@ name, group size and schedule, T1's orders bit-equal within a class and its
 POST class bit-equal to B1, the rule that excludes an instantiation, T2f's
 bit equality with B4 at every group (head dim 160 in group 2 and groups
 that do not divide H included), and T2b's dK/dV, bit-equal across its
-orders and to B5's where B5 runs its dK/dV kernel unsplit.
+orders and to B5's where B5 runs its dK/dV kernel unsplit; and
+pipelines.generate.generate_videos at a small config on the card from a PNG
+and a wav it writes (PIL and scipy; no libav needed), against its CPU run.
 
 Tolerances: fp32 1e-4 times max(1, max|plain|) (fp32 products; summation
 order and the online softmax differ); bf16 2**-6 times max|plain| (two bf16
@@ -875,3 +877,97 @@ def test_t2_uneven_groups_on_card(dev, dtype):
     for a, b in zip(b4, want):
         _check(a, b, dtype)
     assert torch.equal(b1[1], b4[1]) and torch.equal(b1[2], b4[2])
+
+
+# ------------------------------------------------------- generate_videos ---
+
+class _Drawn:
+    """A pipeline handed fixed noise draws (made on the CPU, so that the
+    card and the CPU see the same ones); its float videos are kept."""
+
+    def __init__(self, pipe, noise):
+        self.pipe, self.noise, self.videos = pipe, noise, []
+
+    @property
+    def device(self):
+        return self.pipe.device
+
+    def __call__(self, *args, generator=None, **kw):
+        out = self.pipe(*args, vae_noise=self.noise[0],
+                        latent_noise=self.noise[1], **kw)
+        self.videos.append(out.float().cpu())
+        return out
+
+
+def _small_pipeline(device, dtype):
+    """The tiny UNet at widths 64 / 128 (the smallest K-gemm takes in bf16:
+    K a multiple of 64), the tiny VAE and audio tower, seeded on the CPU
+    (a CUDA generator draws other numbers) and moved to `device`."""
+    from asva_tpu_torch import runtime
+    from asva_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from asva_tpu_torch.models.imagebind_audio import ImageBindAudioConfig
+    from asva_tpu_torch.models.unet3d import UNet3DConfig
+    from asva_tpu_torch.models.vae import VAEConfig
+    from asva_tpu_torch.pipelines.animation import AnimationPipeline
+    ucfg = UNet3DConfig.tiny(block_out_channels=(64, 128),
+                             audio_cross_attention_dim=32)
+    null = torch.randn((1, 77, 768), generator=torch.Generator().manual_seed(
+        9))
+    return AnimationPipeline(
+        runtime.build_unet(ucfg, "cpu", dtype, 0,
+                           randomize_all=True).to(device),
+        runtime.build_vae(VAEConfig.tiny(), "cpu", dtype, 1,
+                          randomize_all=True).to(device),
+        runtime.build_audio_encoder(4, ImageBindAudioConfig.tiny(), "cpu",
+                                    dtype, 2, randomize_all=True).to(device),
+        DiffusionSchedule(), null_text_encoding=null.to(device))
+
+
+def test_generate_videos_on_card(dev, tmp_path):
+    """Two clips in one batched call, DDIM 3 steps: B2 and B3 launch once per
+    audio / transformer block per UNet call, and in bf16 the video's
+    relative RMS distance from the CPU's fp32 run is within 1.5x that of
+    the CPU's bf16 run through the plain versions (chip_smoke.py phase 4's
+    gate)."""
+    from PIL import Image
+    from scipy.io import wavfile
+    from asva_tpu_torch.models.unet3d.transformer import (
+        SpatioAudioTempTransformerBlock)
+    from asva_tpu_torch.pipelines.generate import generate_videos
+    gen = torch.Generator().manual_seed(4)
+    image = (torch.rand((20, 24, 3), generator=gen) * 255).to(torch.uint8)
+    Image.fromarray(image.numpy()).save(tmp_path / "cond.png")
+    s = torch.arange(int(2.5 * 44100)) / 44100
+    wave = torch.stack([0.5 * torch.sin(2 * math.pi * 440 * s),
+                        0.3 * torch.sin(2 * math.pi * 97 * s)], -1)
+    wavfile.write(tmp_path / "cond.wav", 44100,
+                  (wave * 32767).to(torch.int16).numpy())
+    noise = (torch.randn((1, 8, 8, 4), generator=gen),
+             torch.randn((1, 3, 8, 8, 4), generator=gen))
+    kw = dict(image_path=str(tmp_path / "cond.png"),
+              audio_path=str(tmp_path / "cond.wav"), image_size=(16, 16),
+              video_fps=6, video_num_frame=4, num_clips_per_video=2,
+              num_inference_steps=3, sampler="ddim",
+              audio_guidance_scale=4.0, seed=0)
+    videos = {}
+    for name, device, dtype in (("card", dev, torch.bfloat16),
+                                ("cpu32", "cpu", torch.float32),
+                                ("cpu16", "cpu", torch.bfloat16)):
+        pipe = _Drawn(_small_pipeline(device, dtype), noise)
+        for k in fused.LAUNCHES:
+            fused.LAUNCHES[k] = 0
+        out = generate_videos(pipe, **kw)
+        assert [f.shape for f, _ in out] == [(4, 16, 16, 3)] * 2
+        videos[name] = pipe.videos[0]
+        if name == "card":
+            blocks = [m for m in pipe.pipe.unet.modules()
+                      if isinstance(m, SpatioAudioTempTransformerBlock)]
+            assert fused.LAUNCHES["B2"] == 3 * sum(b.use_audio
+                                                   for b in blocks) > 0
+            assert fused.LAUNCHES["B3"] == 3 * len(blocks)
+    ref = videos["cpu32"]
+
+    def rel_rms(v):
+        return ((v - ref).norm() / ref.norm()).item()
+    assert torch.isfinite(videos["card"]).all()
+    assert rel_rms(videos["card"]) <= 1.5 * rel_rms(videos["cpu16"])

@@ -1,7 +1,8 @@
 """Parity of the port's metric networks (Inception-I3D, InceptionV3-FID)
 against asva_tpu on the CPU, fp32, weights and BatchNorm running statistics
 carried across with a strict load.  Full-width nets at the smallest inputs
-their strides allow; one jitted JAX init per module fixture.  The published
+their strides allow; one jitted JAX init per module fixture and jitted JAX
+forwards (one compile instead of an eager compile per op).  The published
 input sizes are marked slow."""
 import jax
 import jax.numpy as jnp
@@ -39,7 +40,7 @@ def test_i3d_features(i3d_pair, rng, shape):
     Relative to max|logits| 2e-4 (deep fp32 net, two conv libraries)."""
     jm, v, tm = i3d_pair
     x = (rng.random(shape) * 2 - 1).astype(np.float32)
-    want = np.asarray(jm.apply(v, x))
+    want = np.asarray(jax.jit(jm.apply)(v, x))
     with torch.no_grad():
         got = tm(t(x))
     assert got.shape == (shape[0], 400)
@@ -51,7 +52,7 @@ def test_i3d_sliding_temporal_head(i3d_pair, rng):
     slides, which a global mean would not reproduce; 2e-4 relative."""
     jm, v, tm = i3d_pair
     x = (rng.random((1, 24, 32, 32, 3)) * 2 - 1).astype(np.float32)
-    want = np.asarray(jm.apply(v, x))
+    want = np.asarray(jax.jit(jm.apply)(v, x))
     with torch.no_grad():
         got = tm(t(x)).numpy()
     assert np.abs(got - want).max() <= 2e-4 * np.abs(want).max()
@@ -77,7 +78,7 @@ def test_i3d_bn_eps_is_used(i3d_pair, rng):
     jm = ji.InceptionI3D(bn_eps=1e-3)
     tm = port(ti.InceptionI3D(bn_eps=1e-3), v, i3d_key_map)
     x = (rng.random((1, 9, 32, 32, 3)) * 2 - 1).astype(np.float32)
-    want = np.asarray(jm.apply(v, x))
+    want = np.asarray(jax.jit(jm.apply)(v, x))
     with torch.no_grad():
         got = tm(t(x)).numpy()
     assert tm.Mixed_3b.b0.bn.eps == 1e-3
@@ -125,7 +126,7 @@ def test_inception_v3_fid_features(fid_pair, rng, shape):
     2e-4 relative to max|features|."""
     jm, v, tm = fid_pair
     x = (rng.random(shape) * 2 - 1).astype(np.float32)
-    want = np.asarray(jm.apply(v, x))
+    want = np.asarray(jax.jit(jm.apply)(v, x))
     with torch.no_grad():
         got = tm(t(x))
     assert got.shape == (shape[0], 2048)
@@ -144,13 +145,13 @@ def test_full_size_inputs(i3d_pair, fid_pair, rng):
     """The published input sizes: 12 x 224^2 video, 229^2 image."""
     jm, v, tm = i3d_pair
     x = (rng.random((1, 12, 224, 224, 3)) * 2 - 1).astype(np.float32)
-    want = np.asarray(jm.apply(v, x))
+    want = np.asarray(jax.jit(jm.apply)(v, x))
     with torch.no_grad():
         got = tm(t(x)).numpy()
     assert np.abs(got - want).max() <= 2e-4 * np.abs(want).max()
     jm, v, tm = fid_pair
     x = (rng.random((1, 229, 229, 3)) * 2 - 1).astype(np.float32)
-    want = np.asarray(jm.apply(v, x))
+    want = np.asarray(jax.jit(jm.apply)(v, x))
     with torch.no_grad():
         got = tm(t(x)).numpy()
     assert np.abs(got - want).max() <= 2e-4 * np.abs(want).max()

@@ -80,7 +80,15 @@ def test_port_imports_no_jax():
              "tools/attn_experiments.py", "tools/mha_phase_bench.py",
              "training/sync_trainer.py", "config.py", "observability.py",
              "utils.py", "ops/resample.py", "ops/variants.py",
-             "data/multipair.py")} <= seen
+             "data/multipair.py", "data/media.py", "data/datasets.py",
+             "pipelines/generate.py", "convert.py", "scripts/__init__.py",
+             "scripts/common.py", "scripts/animation_demo.py",
+             "scripts/animation_gen.py", "scripts/animation_eval.py",
+             "scripts/avsync_metric.py")} <= seen
+    # the media layer builds the port's own copy of its C++ source
+    from asva_tpu_torch.data import media
+    assert os.path.samefile(os.path.dirname(media.SOURCE),
+                            os.path.join(PKG, "csrc"))
     # chip_smoke.py and the port also stay clear of the repo's tools/ (they
     # import JAX at their top)
     tools = re.compile(r"^\s*(import|from)\s+tools(\.|\s|$)", re.M)

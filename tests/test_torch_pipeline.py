@@ -144,3 +144,108 @@ def test_runtime_builders_and_modules_config(tmp_path):
                torch.randn(1, 7, 768), video_length=F, num_inference_steps=2,
                sampler="ddim", generator=torch.Generator().manual_seed(0))
     assert out.shape == (1, F, 16, 16, 3) and torch.isfinite(out).all()
+
+
+# ------------------------------------------------------ generate_videos ---
+
+class _Recorded:
+    """A pipeline whose float videos are kept; for the port's, the noise
+    draws are JAX's (shared by the clips, as broadcast_rng shares them)."""
+
+    def __init__(self, pipe, noise=None):
+        self.pipe, self.noise, self.videos = pipe, noise, []
+
+    @property
+    def device(self):
+        return self.pipe.device
+
+    def __call__(self, *args, generator=None, **kw):
+        if self.noise is not None:
+            kw.update(vae_noise=self.noise[0], latent_noise=self.noise[1])
+        out = self.pipe(*args, **kw)
+        self.videos.append(np.asarray(out))
+        return out
+
+
+@pytest.fixture(scope="module")
+def cond_files(tmp_path_factory):
+    """A 20x24 PNG and 2.5 s of stereo 44.1 kHz int16 wav."""
+    from PIL import Image
+    from scipy.io import wavfile
+    root = tmp_path_factory.mktemp("cond")
+    rng = np.random.default_rng(12)
+    Image.fromarray((rng.random((20, 24, 3)) * 255).astype(np.uint8)).save(
+        root / "cond.png")
+    s = np.arange(int(2.5 * 44100)) / 44100
+    wave = np.stack([0.5 * np.sin(2 * np.pi * 440 * s),
+                     0.3 * np.sin(2 * np.pi * 97 * s)], -1)
+    wavfile.write(root / "cond.wav", 44100, (wave * 32767).astype(np.int16))
+    return str(root / "cond.png"), str(root / "cond.wav")
+
+
+GEN_KW = dict(image_size=(16, 16), video_fps=6, video_num_frame=F,
+              num_clips_per_video=2, num_inference_steps=3, sampler="ddim",
+              audio_guidance_scale=4.0, text_guidance_scale=1.0, seed=5)
+
+
+def _port_noise(jpipe, image_path):
+    from asva_tpu.pipelines.generate import load_image
+    image = load_image(image_path, GEN_KW["image_size"])[None]
+    return _jax_draws(jpipe, image * 2 - 1, GEN_KW["seed"], True)
+
+
+def test_generate_videos_matches_jax(pipelines, cond_files, rng):
+    """PNG + stereo 44.1 kHz wav -> two clips in one batched call: the float
+    videos within 1e-4 of asva_tpu's generate_videos, the uint8 frames (a
+    truncating cast) within one level, the audio the same."""
+    from asva_tpu.pipelines.generate import generate_videos as jgen
+    from asva_tpu_torch.pipelines.generate import generate_videos as tgen
+    jpipe, tpipe = pipelines
+    enc = rng.standard_normal((77, 768)).astype(np.float32)
+    jrec = _Recorded(jpipe)
+    want = jgen(jrec, *cond_files, category_text_encoding=enc, **GEN_KW)
+    trec = _Recorded(tpipe, _port_noise(jpipe, cond_files[0]))
+    got = tgen(trec, *cond_files, category_text_encoding=enc, **GEN_KW)
+    assert len(got) == len(want) == 2
+    close(trec.videos[0], jrec.videos[0], 1e-4)
+    for (gf, ga), (wf, wa) in zip(got, want):
+        assert gf.shape == (F, 16, 16, 3) and gf.dtype == np.uint8
+        assert np.abs(gf.astype(int) - wf.astype(int)).max() <= 1
+        assert ga.shape == (2, 10666)
+        np.testing.assert_allclose(ga, wa, atol=1e-6)
+
+
+def test_generate_videos_batched_equals_per_clip(pipelines, cond_files):
+    """One batched call with broadcast_rng and the per-clip loop, each clip
+    with the same draws: the same frames, bit for bit on the CPU.  Without a
+    text encoding the zeros context is used (with a warning) in both."""
+    from asva_tpu_torch.pipelines.generate import generate_videos as tgen
+    jpipe, tpipe = pipelines
+    noise = _port_noise(jpipe, cond_files[0])
+    batched = tgen(_Recorded(tpipe, noise), *cond_files, **GEN_KW)
+    per_clip = tgen(_Recorded(tpipe, noise), *cond_files, batch_clips=False,
+                    **GEN_KW)
+    for (bf, ba), (pf, pa) in zip(batched, per_clip):
+        np.testing.assert_array_equal(bf, pf)
+        np.testing.assert_array_equal(ba, pa)
+
+
+def test_generate_videos_own_draws_and_mp4(pipelines, cond_files, tmp_path):
+    """The port's own generator draws: a seed gives the same clips twice;
+    with a save_template the clips are written as <template>_clip-kk.mp4
+    (16 kHz audio) and nothing is returned."""
+    from asva_tpu_torch.data import media
+    from asva_tpu_torch.pipelines.generate import generate_videos as tgen
+    _, tpipe = pipelines
+    runs = [tgen(tpipe, *cond_files, **GEN_KW) for _ in range(2)]
+    for (a, _), (b, _) in zip(*runs):
+        np.testing.assert_array_equal(a, b)
+    if not media.headers_available():
+        return
+    tmpl = str(tmp_path / "out" / "gen")
+    assert tgen(tpipe, *cond_files, save_template=tmpl, **GEN_KW) is None
+    for k, (frames, _) in enumerate(runs[0]):
+        with media.MediaReader(f"{tmpl}_clip-{k:02d}.mp4") as r:
+            assert r.size == (16, 16) and r.audio_sample_rate == 16000
+            clip = r.read_video_clip(0, F / 6, 6, F)
+        assert clip.shape == frames.shape

@@ -165,13 +165,13 @@ def test_imagebind_vision_encoder(rng, normalize):
     pre-trunk LayerNorm, unit-norm head; 2e-5."""
     jm = je.ImageBindVisionEncoder(je.ImageBindVisionConfig.tiny())
     img = rng.standard_normal((2, 28, 28, 3)).astype(np.float32)
-    p = randomize(jm.init(jax.random.PRNGKey(0), img), rng)
+    p = randomize(jax.jit(jm.init)(jax.random.PRNGKey(0), img), rng)
     tm = port(te.ImageBindVisionEncoder(te.ImageBindVisionConfig.tiny()), p,
               imagebind_vision_key_map)
     with torch.no_grad():
         got = tm(t(img), normalize)
     assert got.shape == (2, 16)
-    close(got, jm.apply(p, img, normalize), 2e-5)
+    close(got, jax.jit(jm.apply, static_argnums=2)(p, img, normalize), 2e-5)
     if normalize:
         close(got.norm(dim=-1), np.ones(2), 1e-5)
 
@@ -186,7 +186,8 @@ def test_imagebind_text_encoder(rng, normalize):
     for row, eos in enumerate((4, 11, 7)):
         ids[row, eos] = 63
         ids[row, eos + 1:] = 0
-    p = randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(ids)), rng)
+    p = randomize(jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(ids)),
+                  rng)
     tm = port(te.ImageBindTextEncoder(te.ImageBindTextConfig.tiny()), p,
               imagebind_text_key_map)
     with torch.no_grad():
@@ -195,5 +196,6 @@ def test_imagebind_text_encoder(rng, normalize):
         padded[0, 5:] = 9          # after end-of-text: invisible
         again = tm(t(padded), normalize)
     assert got.shape == (3, 16)
-    close(got, jm.apply(p, jnp.asarray(ids), normalize), 2e-5)
+    close(got, jax.jit(jm.apply, static_argnums=2)(p, jnp.asarray(ids),
+                                                   normalize), 2e-5)
     close(again[0], got[0].numpy(), 1e-6)

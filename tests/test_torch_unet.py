@@ -226,10 +226,10 @@ def test_ff_resnet_block(rng, cin, cout):
     """VideoGroupNorm over all frames, per-frame temb, shortcut conv."""
     x, temb = _x(rng, 2, 3, 6, 6, cin), _x(rng, 2, 3, 12)
     jm = jr.FFResnetBlock(cout, temb_channels=12, groups=4)
-    p = randomize(jm.init(jax.random.PRNGKey(0), x, temb), rng)
+    p = randomize(jax.jit(jm.init)(jax.random.PRNGKey(0), x, temb), rng)
     tm = port(tr.FFResnetBlock(cin, cout, 12, groups=4), p)
     with torch.no_grad():
-        close(tm(t(x), t(temb)), jm.apply(p, x, temb), 3e-5)
+        close(tm(t(x), t(temb)), jax.jit(jm.apply)(p, x, temb), 3e-5)
 
 
 @pytest.mark.parametrize("kind", ["down", "up"])
@@ -251,8 +251,9 @@ def test_transformer3d(rng, fuse):
     idx = segment_token_indices(f, (12, 19))
     jm = jt.SpatioAudioTempTransformer3D(2, 8, norm_num_groups=4,
                                          fuse_blocks=fuse)
-    p = randomize(jm.init(jax.random.PRNGKey(0), x, text, aud, None, idx), rng)
-    want = jm.apply(p, x, text, aud, None, idx)
+    p = randomize(jax.jit(jm.init)(jax.random.PRNGKey(0), x, text, aud, None,
+                                   idx), rng)
+    want = jax.jit(jm.apply)(p, x, text, aud, None, idx)
     tm = port(tt.SpatioAudioTempTransformer3D(
         2, 8, 16, norm_num_groups=4, cross_attention_dim=12,
         audio_cross_attention_dim=10), p)
@@ -274,10 +275,10 @@ def _unet_case(rng, jcfg, tcfg, f=4, hw=8, text_len=7):
     aud = _x(rng, 2, 229, jcfg.audio_cross_attention_dim)
     idx = segment_token_indices(f, (12, 19))
     jm = JU(jcfg)
-    # jit: one compiled init instead of thousands of eager init ops
+    # jit: one compiled init and apply instead of thousands of eager ops
     p = randomize(jax.jit(jm.init)(jax.random.PRNGKey(0), x, ts, text, aud,
                                    None, idx), rng)
-    want = jm.apply(p, x, ts, text, aud, None, idx)
+    want = jax.jit(jm.apply)(p, x, ts, text, aud, None, idx)
     return jm, p, port(TU(tcfg), p), (x, ts, text, aud), want
 
 
@@ -341,7 +342,7 @@ def test_tiny_unet_mask_input_equals_gather(tiny_unet):
     output as the port's token gather built from it, 5e-5."""
     jm, p, tm, (x, ts, text, aud), _ = tiny_unet
     m = np.broadcast_to(segment_masks(4, (12, 19))[None], (2, 4, 229))
-    want = jm.apply(p, x, ts, text, aud, jnp.asarray(m))
+    want = jax.jit(jm.apply)(p, x, ts, text, aud, jnp.asarray(m))
     with torch.no_grad():
         close(tm(t(x), t(ts), t(text), t(aud), audio_mask=t(m)), want, 5e-5)
 

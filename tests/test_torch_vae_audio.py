@@ -121,8 +121,9 @@ def test_segmask_audio_encoder(rng, normalize):
     cfg_j, cfg_t = ja.ImageBindAudioConfig.tiny(), ta.ImageBindAudioConfig.tiny()
     jm = ja.SegmaskAudioEncoder(cfg_j, n_segment=4)
     mel = rng.standard_normal((2, 128, 204, 1)).astype(np.float32)
-    p = randomize(jm.init(jax.random.PRNGKey(0), mel), rng)
-    jcls, jenc, jmask = jm.apply(p, mel, normalize)
+    p = randomize(jax.jit(jm.init)(jax.random.PRNGKey(0), mel), rng)
+    jcls, jenc, jmask = jax.jit(jm.apply, static_argnums=2)(p, mel,
+                                                             normalize)
     tm = port(ta.SegmaskAudioEncoder(cfg_t, n_segment=4), p,
               imagebind_audio_key_map)
     with torch.no_grad():
