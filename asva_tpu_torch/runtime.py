@@ -296,9 +296,18 @@ def build_avsync_classifier(weights_dirs=None, device="cuda",
     {'audio_encoder': path, 'video_encoder': path, 'head': path} (each a
     module directory in the reference's layout, a file, or the port's export
     `<path>.pt`) or one directory that holds the three, as directories,
-    as `<module>.pt`, or under `modules/` (a `CheckpointManager` step).  A
-    module whose weights are missing keeps its random init, with a
-    warning."""
+    as `<module>.pt`, or under `modules/` (a `CheckpointManager` step); or
+    the path of a whole-classifier export (`avsync_train`'s
+    `checkpoint-N/modules/classifier`, which names its `classifier.pt`),
+    loaded strictly.  A module whose weights are missing keeps its random
+    init, with a warning."""
+    whole = (resolve_weights(weights_dirs) if isinstance(weights_dirs, str)
+             else None)
+    if whole is not None:
+        return _build(AVSyncClassifier, device, dtype, seed, randomize_all,
+                      train=train, gain=_RELU_GAIN,
+                      load=lambda model: load_exported(
+                          model, load_torch_state(whole)))
     if isinstance(weights_dirs, str):
         root = weights_dirs
         weights_dirs = {}
@@ -321,6 +330,42 @@ def build_avsync_classifier(weights_dirs=None, device="cuda",
             load_exported(getattr(model, mod), load_torch_state(path))
     return _build(AVSyncClassifier, device, dtype, seed, randomize_all,
                   train=train, gain=_RELU_GAIN, load=load if files else None)
+
+
+def init_avsync_from_avid_cma(classifier: AVSyncClassifier, path: str,
+                              modules=("audio", "video")) -> dict:
+    """Load the classifier's encoders from a raw AVID-CMA checkpoint
+    (asva_tpu/runtime.py:168-189).  The reference loads the tar's "model"
+    dict and strips the DDP prefixes `module.audio_model.` /
+    `module.video_model.` (avsync/models/audio.py:63-71, video.py:84-91);
+    the port's towers use the reference's key space, so each selected
+    tower loads its renamed keys with `load_state_dict`.  `modules` selects
+    the towers (the YAML has a pretrained flag per encoder); the head has
+    no AVID-CMA source and keeps its init.  Returns {"loaded", "missing",
+    "unused"}: the keys loaded and those of a selected tower that the file
+    lacks (classifier keys), and the file's keys that were not loaded."""
+    state = load_torch_state(path)
+    prefixes = {"audio": ("module.audio_model.", "audio_encoder"),
+                "video": ("module.video_model.", "video_encoder")}
+    report = {"loaded": [], "missing": [], "unused": []}
+    used = set()
+    for name in modules:
+        prefix, tower = prefixes[name]
+        module = getattr(classifier, tower)
+        own = module.state_dict()
+        renamed = {k[len(prefix):]: v for k, v in state.items()
+                   if k.startswith(prefix) and k[len(prefix):] in own}
+        used.update(prefix + k for k in renamed)
+        result = module.load_state_dict(
+            {k: v.to(dtype=own[k].dtype, device=own[k].device)
+             for k, v in renamed.items()}, strict=False)
+        report["loaded"] += [f"{tower}.{k}" for k in renamed]
+        report["missing"] += [f"{tower}.{k}" for k in result.missing_keys]
+    report["unused"] = sorted(set(state) - used)
+    log.info("avsync: AVID-CMA init loaded %d tensors (%d missing, %d "
+             "unused) from %s", len(report["loaded"]),
+             len(report["missing"]), len(report["unused"]), path)
+    return report
 
 
 def build_i3d_classifier(num_classes: int = 400,

@@ -13,7 +13,8 @@ so a crash mid-write never leaves zero usable checkpoints.  Storage is
 `torch.save` of nested dicts of tensors and numbers, written to a temporary
 name and renamed; `state.pt` is renamed last, and only a directory that
 holds it counts as a checkpoint.  Loading is
-`torch.load(weights_only=True)`.  Saves are synchronous.
+`torch.load(weights_only=True)`.  Saves are synchronous, so `close()`, which
+the train loops call before they return, has nothing left to wait for.
 """
 from __future__ import annotations
 
@@ -141,6 +142,11 @@ class CheckpointManager:
         return torch.load(
             os.path.join(self._path(step), "modules", f"{name}.pt"),
             map_location=map_location, weights_only=True)
+
+    def close(self) -> None:
+        """Make every save durable (asva_tpu's `close` waits for its
+        asynchronous writes).  Saves here are synchronous: each file was
+        written and renamed before `save` returned."""
 
     def modules_dir(self, step: int) -> str:
         """The `checkpoint_modules_dir` to hand to load_animation_pipeline."""

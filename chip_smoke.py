@@ -140,6 +140,42 @@ Phases, in order; any failure exits non-zero and prints no result:
                 metric finite, RelSync / AlignSync in [0, 1].  Seconds per
                 clip through generate_videos are printed beside phase 4's
                 pipeline call.
+ 10. CLIs     — training and serving from the command-line modules, with
+                the data from ChipClips / ChipPairs (in-memory items of
+                AudioVideoDataset's and MultiPairAVDataset's keys, dtypes
+                and full-size shapes, drawn with numpy from (seed, epoch,
+                index): that machine has no libav; where libav exists,
+                clips written by the port's writer go through the real
+                datasets and the CLIs' main(argv) instead).
+                animation_train.train on
+                configs/audio-cond_animation/avsync15_audio-cond_cfg.yaml
+                (only output_dir, the data paths and checkpointing_steps = 1
+                replaced: 256x256, 12 frames, batch 4, accumulation 2, the
+                default UNet3DConfig with remat "highres", seeded weights,
+                bf16) for 3 steps through the thread DataLoader (8
+                workers); then a run of 2 steps and its resume from
+                checkpoint-2 to 3: the step-3 loss and every trainable
+                parameter must equal the uninterrupted run's bit for bit
+                (cuDNN deterministic), and the loader cursors of
+                checkpoint-2 / -3 and after the resume must be 4 / 6 / 6;
+                seconds per step (each step ends at the synchronisation
+                before its checkpoint), the saves and peak memory beside
+                phase 5's.  avsync_train.train at the sizes of
+                configs/avsync/vggss_sync_contrast.yaml (21 clips of
+                12x224x224, batch 4, test batch 8): 2 steps through the
+                process DataLoader with one forked worker a core, one
+                evaluate over 2 test batches, a bit-exact checkpoint round
+                trip with the loader's state and the classifier export;
+                both loaders drained alone, in items a second, beside the
+                steps'.  animation_serve.main in a thread at the
+                full-width defaults (--port 0 --warmup --warmup_steps 5
+                --warmup_clips 3): /healthz must say warm, one /generate
+                from phase 9's PNG and wav must answer 500 with
+                generate_videos' refusal to write mp4 without libav (and
+                /healthz then 0 requests), or 200 with three mp4s where
+                libav exists; the server is shut down and its thread
+                joined.  avsync_eval.main on the written clips where libav
+                exists.
 Launch counters are zeroed just before each path run and read just after.
 
 Tolerances (max |kernel - plain| over an output):
@@ -1892,6 +1928,570 @@ def phase_files(report, pipeline_seconds):
     return counts["bfloat16 batched"], counts["bfloat16 per-clip"]
 
 
+# ------------------------------------------------------------ phase 10 ---
+
+ANIMATION_YAML = "configs/audio-cond_animation/avsync15_audio-cond_cfg.yaml"
+TRAIN_ITEMS = 24      # 6 batches of 4: 3 steps of 2 accumulated batches
+
+
+class ChipClips:
+    """AudioVideoDataset's items where the card's machine cannot decode
+    video (no libav): its keys, dtypes and full-size shapes (video (f, h,
+    w, 3) float32 in [0, 1], waveform (f / fps * 16 kHz,) float32,
+    text_encoding (77, 768) float32), drawn with numpy from (seed, epoch,
+    index) as the real dataset draws its clip starts."""
+
+    def __init__(self, n, dataset_cfg, seed):
+        d = dataset_cfg
+        self.n, self.seed, self.epoch = n, seed, 0
+        self.shape = (d.video_num_frame,) + tuple(d.img_size) + (3,)
+        self.samples = int(d.video_num_frame / d.video_fps * 16000)
+
+    def __len__(self):
+        return self.n
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __getitem__(self, index):
+        import numpy as np
+        rng = np.random.default_rng((self.seed, self.epoch, index))
+        return {"video": rng.random(self.shape, dtype=np.float32),
+                "waveform": rng.standard_normal(self.samples,
+                                                dtype=np.float32) * 0.1,
+                "text_encoding": rng.standard_normal((77, 768),
+                                                     dtype=np.float32)}
+
+
+class ChipPairs(ChipClips):
+    """MultiPairAVDataset's items, likewise: index, videos (k, f, s, s, 3)
+    float32 (CLIP-normalized values: about N(0, 1)), waveforms (k,
+    samples) float32."""
+
+    def __init__(self, n, dataset_cfg, seed):
+        d = dataset_cfg
+        self.n, self.seed, self.epoch = n, seed, 0
+        self.shape = (d.num_clips, d.video_num_frames, d.image_size,
+                      d.image_size, 3)
+        self.samples = (d.num_clips,
+                        int(d.video_num_frames / d.video_fps * 16000))
+
+    def __getitem__(self, index):
+        import numpy as np
+        rng = np.random.default_rng((self.seed, self.epoch, index))
+        return {"index": index,
+                "videos": rng.standard_normal(self.shape, dtype=np.float32),
+                "waveforms": rng.standard_normal(self.samples,
+                                                 dtype=np.float32) * 0.1}
+
+
+def _write_media_tree(root, n_clips, seconds):
+    """Clips the real datasets can read (64x64, 12 fps, 16 kHz tone), one
+    class with its text encoding; where libav exists."""
+    import numpy as np
+    from asva_tpu_torch.data import media
+    rng = np.random.default_rng(950)
+    names = [f"dog/v{i}.mp4" for i in range(n_clips)]
+    t = np.arange(int(seconds * 16000)) / 16000
+    for i, name in enumerate(names):
+        frames = (rng.random((int(seconds * 12), 64, 64, 3)) * 255).astype(
+            np.uint8)
+        audio = (0.3 * np.sin(2 * np.pi * (200 + 30 * i) * t)).astype(
+            np.float32)[None]
+        media.write_video(os.path.join(root, name), frames, 12.0, audio,
+                          16000)
+    with open(os.path.join(root, "list.txt"), "w") as f:
+        f.write("\n".join(names))
+    with open(os.path.join(root, "mapping.json"), "w") as f:
+        json.dump({"dog": "a dog"}, f)
+    np.savez(os.path.join(root, "enc.npz"), **{
+        "a dog": rng.standard_normal((77, 768)).astype(np.float32)})
+
+
+def _job_yaml(src, tmp, name, edit):
+    """A copy of the repository's YAML `src` with `edit(raw)` applied."""
+    import yaml
+    with open(os.path.join(ROOT, src)) as f:
+        raw = yaml.safe_load(f)
+    edit(raw)
+    path = os.path.join(tmp, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(raw, f)
+    return path
+
+
+@contextlib.contextmanager
+def _timed_saves(marks):
+    """Record (step, card idle, save done) host times of every checkpoint
+    written: the card is synchronised before the save, so a step's time is
+    from the previous save's end to its own synchronisation."""
+    import torch
+    from asva_tpu_torch.training.checkpoint import CheckpointManager
+    orig = CheckpointManager.save
+
+    def save(self, step, *a, **kw):
+        torch.cuda.synchronize()
+        synced = time.perf_counter()
+        saved = orig(self, step, *a, **kw)
+        if saved:
+            marks.append((step, synced, time.perf_counter()))
+        return saved
+    CheckpointManager.save = save
+    try:
+        yield
+    finally:
+        CheckpointManager.save = orig
+
+
+def _step_seconds(marks):
+    """Seconds of each step after the first, from checkpoints every step."""
+    return [round(b[1] - a[2], 4) for a, b in zip(marks, marks[1:])]
+
+
+def phase_cli_train(report, media_root, tmp):
+    """animation_train at the AVSync15 config's full width: 3 steps, then
+    an interrupted run of 2 and its resume to 3; the resumed step equals the
+    uninterrupted one bit for bit."""
+    import shutil
+
+    import torch
+    from asva_tpu_torch.config import AnimationJobConfig
+    from asva_tpu_torch.scripts import animation_train
+    from asva_tpu_torch.training.checkpoint import CheckpointManager
+
+    def run(name, max_steps):
+        out_dir = os.path.join(tmp, name)
+
+        def edit(raw):
+            raw["exp"]["output_dir"] = out_dir
+            d = raw["train"]["dataset"]
+            d["data_root"] = media_root or ""
+            d["example_list_path"] = os.path.join(media_root or "",
+                                                  "list.txt")
+            d["class_mapping_json"] = os.path.join(media_root or "",
+                                                   "mapping.json")
+            d["class_text_encoding_mapping_pt"] = os.path.join(
+                media_root or "", "enc.npz")
+            raw["optim"]["checkpointing_steps"] = 1
+        path = _job_yaml(ANIMATION_YAML, tmp, name, edit)
+        cfg = AnimationJobConfig.from_yaml(path)
+        if media_root:
+            out = animation_train.main(["--config_file", path,
+                                        "--max_steps_override",
+                                        str(max_steps), "--device", "cuda"])
+        else:
+            out = animation_train.train(
+                cfg, ChipClips(TRAIN_ITEMS, cfg.dataset, cfg.seed), "cuda",
+                max_steps)
+        torch.cuda.synchronize()
+        return cfg, out, CheckpointManager(os.path.join(out_dir, "ckpts"))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    reset_counts()
+    t0 = time.perf_counter()
+    with _timed_saves(marks):
+        cfg, full, mgr = run("uninterrupted", 3)
+    full_s = time.perf_counter() - t0
+    counts_full = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    state = full["state"]
+    want = {n: p.detach().clone() for n, p in
+            zip(state.optimizer.names, state.optimizer.params)}
+    full_losses = full["losses"]
+    want_loss, want_loader = full_losses[-1], full["loader"]
+    extra3 = mgr.restore_extra(3)
+    full_marks = list(marks)
+    del full, state
+    shutil.rmtree(os.path.join(tmp, "uninterrupted"))
+    torch.cuda.empty_cache()
+
+    _, part, mgr_b = run("resumed", 2)         # interrupted after step 2
+    extra2 = mgr_b.restore_extra(2)
+    del part
+    torch.cuda.empty_cache()
+    marks.clear()
+    reset_counts()
+    with _timed_saves(marks):
+        _, resumed, _ = run("resumed", 3)
+    counts_resumed = read_counts()
+    state = resumed["state"]
+    same_params = all(torch.equal(p, want[n]) for n, p in
+                      zip(state.optimizer.names, state.optimizer.params))
+    o = cfg.optim
+    out = dict(
+        data="media files through main(argv)" if media_root else
+        "in-memory ChipClips through train()",
+        batch_size=cfg.batch_size, accumulation=o.gradient_accumulation_steps,
+        img_size=list(cfg.dataset.img_size),
+        frames=cfg.dataset.video_num_frame, losses=full_losses,
+        seconds_3_steps=full_s, save_marks=full_marks,
+        seconds_per_step=_step_seconds(full_marks),
+        save_seconds=[round(m[2] - m[1], 3) for m in full_marks],
+        max_memory_allocated=peak, loss_step3=want_loss,
+        resumed_loss_step3=resumed["losses"], resumed_from=resumed[
+            "resumed_from"], params_equal=same_params,
+        cursor_checkpoint2=extra2["loader"], cursor_checkpoint3=extra3[
+            "loader"], loader_after_resume=resumed["loader"],
+        launches_uninterrupted=counts_full, launches_resumed=counts_resumed,
+        phase5_seconds_per_step=report["train"]["seconds_per_step"])
+    report["cli_train"] = out
+    log(f"  animation_train: {out['data']}; batch {cfg.batch_size} x "
+        f"accumulation {o.gradient_accumulation_steps} of {out['frames']} x "
+        f"{out['img_size']}; 3 steps in {full_s:.1f} s; seconds per step "
+        f"(checkpoint every step, its save excluded) "
+        f"{out['seconds_per_step']} beside phase 5's one-batch steps "
+        f"{[round(s, 3) for s in out['phase5_seconds_per_step']]}; saves "
+        f"{out['save_seconds']} s; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"  animation_train: step-3 loss {want_loss!r}, resumed from "
+        f"checkpoint-{resumed['resumed_from']} {resumed['losses']}; "
+        f"trainable parameters equal {same_params}; loader cursor at "
+        f"checkpoint-2 {extra2['loader']}, checkpoint-3 {extra3['loader']}, "
+        f"after the resume {resumed['loader']}; launches {counts_full} + "
+        f"{counts_resumed}")
+    accum = o.gradient_accumulation_steps
+    if not (resumed["resumed_from"] == 2 and resumed["losses"] == [want_loss]
+            and same_params and len(full_losses) == 3
+            and all(math.isfinite(x) for x in full_losses)
+            and extra2["loader"]["cursor"] == 2 * accum
+            and extra3["loader"] == want_loader == resumed["loader"]
+            and want_loader["cursor"] == 3 * accum):
+        fail(f"animation_train resume: {out}")
+    counts = {k: counts_full[k] + counts_resumed[k] for k in counts_full}
+    if not (counts["B1"] > 0 and counts["B3"] > 0 and counts["B4"] > 0
+            and counts["B5"] > 0 and counts["B2"] == 0 and counts["B6"] == 0
+            and all(counts[f"KG.{f}"] > 0 for f, *_ in GEMM_FORMS)):
+        fail(f"animation_train launches: {counts}")
+    del resumed, state, want
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _drain(ds, batch_size, mode, workers):
+    """Items a second through a loader whose batches nobody uses: the
+    whole epoch (pool start included) and after the first batch."""
+    from asva_tpu_torch.data.loader import DataLoader
+    dl = DataLoader(ds, batch_size, shuffle=True, num_workers=workers,
+                    worker_mode=mode)
+    try:
+        t0 = time.perf_counter()
+        stamps = [time.perf_counter() for _ in dl]
+    finally:
+        dl.close()
+    n = len(stamps) * batch_size
+    return dict(mode=mode, workers=workers, items=n,
+                items_per_s=n / (stamps[-1] - t0),
+                items_per_s_after_first=(n - batch_size) / (
+                    stamps[-1] - stamps[0]))
+
+
+def phase_cli_sync(report, media_root, tmp):
+    """avsync_train at the VGGSS config's sizes: 2 steps through the process
+    loader, one evaluate over 2 test batches, a checkpoint round trip with
+    the loader's state; the loaders drained alone."""
+    import logging
+
+    import torch
+    from asva_tpu_torch.config import SyncJobConfig
+    from asva_tpu_torch.data.loader import DataLoader
+    from asva_tpu_torch.runtime import build_avsync_classifier
+    from asva_tpu_torch.scripts import avsync_train
+    from asva_tpu_torch.training import SyncTrainState, build_optimizer
+    from asva_tpu_torch.training.checkpoint import CheckpointManager
+    out_dir = os.path.join(tmp, "sync")
+
+    def edit(raw):
+        raw["exp"]["output_dir"] = out_dir
+        for part in ("train", "test"):
+            d = raw[part]["dataset"]
+            d["data_root"] = media_root or ""
+            d["example_list_path"] = os.path.join(media_root or "",
+                                                  "list.txt")
+    path = _job_yaml(SYNC_YAML, tmp, "sync", edit)
+    cfg = SyncJobConfig.from_yaml(path)
+    b, tb = cfg.batch_size, cfg.test_batch_size
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if media_root:
+        res = avsync_train.main(["--config_file", path, "--max_steps_override",
+                                 "2", "--device", "cuda"])
+        train_ds = avsync_train.build_dataset(cfg, cfg.train_dataset,
+                                              "train")
+    else:
+        train_ds = ChipPairs(2 * b, cfg.train_dataset, cfg.seed)
+        res = avsync_train.train(cfg, train_ds,
+                                 ChipPairs(2 * tb, cfg.test_dataset,
+                                           cfg.seed), "cuda", 2)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    state = res["state"]
+    t0 = time.perf_counter()
+    mean = avsync_train.evaluate(res["trainer"], res["test_loader"], "cuda",
+                                 logging.getLogger("chip_smoke"), step=2,
+                                 max_batches=2)
+    eval_s = time.perf_counter() - t0
+
+    mgr = CheckpointManager(os.path.join(out_dir, "ckpts"))
+    step, saved = mgr.restore_latest("cuda")
+    clf = build_avsync_classifier(device="cuda", seed=1, train=True)
+    back = SyncTrainState(0, clf, build_optimizer(clf))
+    back.load_state_dict(saved)
+    del saved
+    loader = DataLoader(train_ds, b, shuffle=True, seed=cfg.seed,
+                        worker_mode="process")
+    loader.load_state_dict(mgr.restore_extra(step)["loader"])
+    exported = build_avsync_classifier(
+        os.path.join(mgr.modules_dir(step), "classifier"), device="cuda")
+    want = state.classifier.state_dict()
+    exact = (all(torch.equal(v, want[k])
+                 for k, v in back.classifier.state_dict().items())
+             and all(torch.equal(v, want[k])
+                     for k, v in exported.state_dict().items())
+             and all(torch.equal(a, c) for kind in ("mu", "nu")
+                     for a, c in zip(getattr(back.optimizer, kind),
+                                     getattr(state.optimizer, kind)))
+             and back.step == state.step == step == 2)
+    loader_back = loader.state_dict() == res["loader"] == dict(
+        epoch=0, cursor=2, seed=cfg.seed)
+    step_s = [round(y - x, 4) for x, y in zip(res["step_times"],
+                                              res["step_times"][1:])]
+
+    # the parts of a CLI step, each synchronised, on one batch of the same
+    # items: collation into pinned memory (the loader's copy), the copy to
+    # the card, 84 mels on the card, the trainer's step with its metrics
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        return value, round(time.perf_counter() - t, 4)
+    from asva_tpu_torch.data.loader import _collate
+    from asva_tpu_torch.parallel.multihost import make_global_batch
+    batch, collate_s = timed(lambda: _collate([train_ds[i]
+                                               for i in range(b)]))
+    dev, h2d_s = timed(lambda: make_global_batch(
+        {"waveforms": batch["waveforms"], "videos": batch["videos"]},
+        "cuda"))
+    mels, mel_s = timed(lambda: avsync_train.mels_of(dev["waveforms"]))
+    _, trainer_s = timed(lambda: {k: float(v) for k, v in res[
+        "trainer"].train_step(state, {"mels": mels,
+                                      "videos": dev["videos"]}).items()})
+    parts = dict(items_and_collate=collate_s, to_card=h2d_s, mels=mel_s,
+                 train_step=trainer_s)
+    del batch, dev, mels
+    pairs = train_ds if media_root else ChipPairs(4 * b, cfg.train_dataset,
+                                                  cfg.seed)
+    drains = [_drain(pairs, b, "process", os.cpu_count() or 8),
+              _drain(pairs, b, "thread", 8)]
+    clips = ChipClips(TRAIN_ITEMS, _animation_dataset_cfg(), 0)
+    drains.append(_drain(clips, 4, "thread", 8))
+    out = dict(
+        data="media files through main(argv)" if media_root else
+        "in-memory ChipPairs through train()",
+        batch_size=b, clips_per_step=b * cfg.train_dataset.num_clips,
+        seconds_2_steps=train_s, seconds_after_first_step=step_s,
+        step_items_per_s=[b / s for s in step_s], metrics=res["metrics"],
+        evaluate=mean, evaluate_seconds=eval_s, checkpoint_step=step,
+        checkpoint_bit_exact=exact, loader_state_restored=loader_back,
+        drains=drains, step_parts=parts,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        phase8_seconds_per_step=report["sync"]["seconds_per_step"])
+    report["cli_sync"] = out
+    log(f"  avsync_train: {out['data']}; batch {b} ({out['clips_per_step']} "
+        f"clips a step) through {os.cpu_count()} forked workers; 2 steps in "
+        f"{train_s:.1f} s (pool start included), the second "
+        f"{step_s} s = {[round(x, 2) for x in out['step_items_per_s']]} "
+        f"items/s beside phase 8's "
+        f"{[round(s, 3) for s in out['phase8_seconds_per_step']]} s a step; "
+        f"evaluate over 2 test batches of {tb} in {eval_s:.1f} s: {mean}; "
+        f"the parts of a step on one batch (s): {parts}")
+    log(f"  avsync_train: checkpoint-{step} round trip bit-exact {exact}, "
+        f"loader state {res['loader']} restored {loader_back}; loaders "
+        f"drained alone (items/s): " + "; ".join(
+            f"{d['mode']} x{d['workers']} {d['items_per_s']:.2f} "
+            f"({d['items_per_s_after_first']:.2f} after the first batch)"
+            for d in drains))
+    if not (exact and loader_back and len(res["metrics"]) == 2
+            and all(math.isfinite(v) for m in res["metrics"]
+                    for v in m.values())
+            and all(math.isfinite(v) for v in mean.values())):
+        fail(f"avsync_train: {out}")
+    del res, state, back, clf, exported
+    torch.cuda.empty_cache()
+    return os.path.join(mgr.modules_dir(step), "classifier")
+
+
+def _animation_dataset_cfg():
+    from asva_tpu_torch.config import AnimationJobConfig
+    return AnimationJobConfig.from_yaml(
+        os.path.join(ROOT, ANIMATION_YAML)).dataset
+
+
+def _http(port, method, path, body=None, timeout=600):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    conn.request(method, path, json.dumps(body) if body else None,
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    return resp.status, json.loads(resp.read())
+
+
+class _Lines:
+    """sys.stdout for the server's thread: writes through, keeps lines."""
+
+    def __init__(self, out):
+        self.out, self.text = out, ""
+
+    def write(self, s):
+        self.text += s
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_cli_serve(report, media_available, tmp):
+    """animation_serve at the full-width defaults in a thread: warmup,
+    /healthz, one /generate, shutdown."""
+    import threading
+
+    import torch
+    from asva_tpu_torch.scripts import animation_serve
+    servers, errors = [], []
+
+    def serve():
+        try:
+            animation_serve.main([
+                "--port", "0", "--warmup", "--warmup_steps", "5",
+                "--warmup_clips", "3", "--sd_root", "",
+                "--null_text_encoding_path", "", "--max_requests", "1",
+                "--device", "cuda"], on_listen=servers.append)
+        except BaseException as e:   # re-raised below, in the main thread
+            errors.append(e)
+            raise
+    lines = _Lines(sys.stdout)
+    saved_stdout, sys.stdout = sys.stdout, lines
+    torch.cuda.synchronize()
+    reset_counts()
+    thread = threading.Thread(target=serve, daemon=True)
+    try:
+        thread.start()
+        deadline = time.time() + 600
+        while not servers and thread.is_alive() and time.time() < deadline:
+            time.sleep(0.1)
+    finally:
+        sys.stdout = saved_stdout
+    counts = read_counts()
+    if errors or not servers:
+        fail(f"animation_serve did not start: {errors or 'timeout'}")
+    server = servers[0]
+    port = server.server_address[1]
+    warm_line = next(ln for ln in lines.text.splitlines()
+                     if ln.startswith("[serve] warmup"))
+    warm_s = float(warm_line.split()[2].rstrip("s"))
+    health = _http(port, "GET", "/healthz")
+    image_path, audio_path = _write_conditioning(tmp)
+    status, reply = _http(port, "POST", "/generate", dict(
+        image_path=image_path, audio_path=audio_path, num_clips=3,
+        num_inference_steps=5, save_template=os.path.join(tmp, "serve",
+                                                          "gen")))
+    if media_available:
+        # the one successful request ends the server (--max_requests 1)
+        answered = status == 200 and len(reply["outputs"]) == 3 and all(
+            os.path.isfile(p) for p in reply["outputs"])
+        after = None
+    else:
+        # a failed request does not count: the server answers on
+        answered = status == 500 and "save_template" in reply["error"]
+        after = _http(port, "GET", "/healthz")
+        answered = answered and after == (200, {"ok": True, "requests": 0,
+                                                "warm": True})
+        server.shutdown()
+    thread.join(timeout=60)
+    out = dict(port=port, healthz=health, generate_status=status,
+               generate_reply=reply, healthz_after=after,
+               warmup_seconds=warm_s, warmup_seconds_per_clip=warm_s / 3,
+               pipeline_seconds_per_clip=report["pipeline"][
+                   "seconds_per_clip"], launches_warmup=counts,
+               stopped=not thread.is_alive())
+    report["cli_serve"] = out
+    log(f"  animation_serve: port {port}; warmup {warm_s:.1f} s for 3 clips "
+        f"(PLMS 5 steps, one UNet batch of 6) = {warm_s / 3:.3f} s a clip "
+        f"beside phase 4's "
+        f"{[round(s, 3) for s in out['pipeline_seconds_per_clip']]} (DDIM 5, "
+        f"one clip); /healthz {health}; /generate {status} {reply}; "
+        f"/healthz after {after}; launches in the warmup {counts}; stopped "
+        f"{out['stopped']}")
+    if not (health == (200, {"ok": True, "requests": 0, "warm": True})
+            and answered and out["stopped"] and not errors
+            and counts["B2"] > 0 and counts["B3"] > 0 and counts["B1"] == 0
+            and counts["B4"] == 0 and counts["B6"] == 0
+            and all(counts[f"KG.{f}"] > 0 for f, *_ in GEMM_FORMS)):
+        fail(f"animation_serve: {out}")
+    return counts
+
+
+def phase_cli_eval(report, media_root, classifier_export, tmp):
+    """avsync_eval on the written clips with part 2's classifier, split
+    into the per-module files the CLI reads (only where libav exists)."""
+    import torch
+    from asva_tpu_torch.scripts import avsync_eval
+    state = torch.load(classifier_export + ".pt", map_location="cpu",
+                       weights_only=True)
+    mods = os.path.join(tmp, "eval_modules")
+    os.makedirs(mods)
+    for name in ("audio_encoder", "video_encoder", "head"):
+        torch.save({k[len(name) + 1:]: v for k, v in state.items()
+                    if k.startswith(name + ".")},
+                   os.path.join(mods, f"{name}.pt"))
+    res = avsync_eval.main(["--data_root", media_root, "--example_list_path",
+                            os.path.join(media_root, "list.txt"),
+                            "--checkpoint_modules_dir", mods,
+                            "--max_examples", "4", "--device", "cuda"])
+    report["cli_eval"] = dict(a2v=res["a2v"], v2a=res["v2a"],
+                              examples=len(res["indices"]))
+    log(f"  avsync_eval: {report['cli_eval']}")
+    if not (len(res["indices"]) == 4 and 0 <= res["a2v"] <= 1
+            and 0 <= res["v2a"] <= 1):
+        fail(f"avsync_eval: {report['cli_eval']}")
+
+
+def phase_cli(report):
+    """Phase 10: the train, sync-train and serve CLIs at full width (and
+    avsync_eval where libav exists).  Returns (training launches, serve
+    warmup launches)."""
+    import torch
+    from asva_tpu_torch.data import media
+    has_media = media.media_available()
+    # the training YAML logs with wandb: never let a run reach for a network
+    os.environ["WANDB_MODE"] = "disabled"
+    # every check below compares runs bit for bit: no nondeterministic
+    # cuDNN algorithm (as phase 8's repeated fp32 step)
+    cudnn_was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        media_root = None
+        if has_media:
+            media_root = os.path.join(tmp, "media")
+            _write_media_tree(media_root, TRAIN_ITEMS, 7.0)
+        log("  data source: " + (
+            f"{TRAIN_ITEMS} clips written with the port's writer, read by "
+            "AudioVideoDataset / MultiPairAVDataset through the CLIs' main"
+            if has_media else
+            "in-memory ChipClips / ChipPairs items (no libav on this "
+            "machine), through the CLIs' train()"))
+        train_counts = phase_cli_train(report, media_root, tmp)
+        export = phase_cli_sync(report, media_root, tmp)
+        serve_counts = phase_cli_serve(report, has_media, tmp)
+        if has_media:
+            phase_cli_eval(report, media_root, export, tmp)
+    torch.backends.cudnn.deterministic = cudnn_was
+    return train_counts, serve_counts
+
+
 def _kernel_kind(name: str) -> str:
     """Coarse family of a device kernel, from its name."""
     if "(anonymous namespace)::gemm_" in name:
@@ -2099,6 +2699,8 @@ def main() -> int:
     log("phase 9: generation and evaluation from files")
     batched_counts, per_clip_counts = phase_files(
         report, report["pipeline"]["seconds_per_clip"])
+    log("phase 10: training and serving from the CLIs")
+    cli_counts, serve_counts = phase_cli(report)
 
     # launches on each driven path: B1 and B3 run in generation and training
     by_path = {
@@ -2120,6 +2722,10 @@ def main() -> int:
         "T1": {"tools.attn_experiments main": tool_counts["T1"]},
         "T2F": {"tools.mha_phase_bench main": tool_counts["T2F"]},
         "T2B": {"tools.mha_phase_bench main": tool_counts["T2B"]}}
+    for key in ("B1", "B3", "B4", "B5"):
+        by_path[key]["animation_train CLI, 3 + 1 steps"] = cli_counts[key]
+    for key in ("B2", "B3"):
+        by_path[key]["serve warmup, 3 clips"] = serve_counts[key]
     for form in ("q", "out", "ff1", "ff2"):
         key = f"KG.{form}"
         by_path[key] = {"unet fuse_blocks=False": b1_counts[key],
@@ -2129,7 +2735,9 @@ def main() -> int:
                         "generate_videos, 3 clips batched":
                             batched_counts[key],
                         "generate_videos, 3 clips per clip":
-                            per_clip_counts[key]}
+                            per_clip_counts[key],
+                        "animation_train CLI, 3 + 1 steps": cli_counts[key],
+                        "serve warmup, 3 clips": serve_counts[key]}
     kernels = []
     for name, (replaces, tpu, sources) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name

@@ -971,3 +971,85 @@ def test_generate_videos_on_card(dev, tmp_path):
         return ((v - ref).norm() / ref.norm()).item()
     assert torch.isfinite(videos["card"]).all()
     assert rel_rms(videos["card"]) <= 1.5 * rel_rms(videos["cpu16"])
+
+
+# ------------------------------------------------------- data to the card ---
+
+class _Items:
+    """(seed, epoch, index)-deterministic items of the given shapes; the
+    values name the item, so an overwritten or misplaced row shows."""
+
+    def __init__(self, n, shapes, seed=0):
+        self.n, self.shapes, self.seed, self.epoch = n, shapes, seed, 0
+
+    def __len__(self):
+        return self.n
+
+    def set_epoch(self, e):
+        self.epoch = e
+
+    def __getitem__(self, i):
+        rng = np.random.default_rng((self.seed, self.epoch, i))
+        out = {"index": np.int64(i)}
+        for k, shape in self.shapes.items():
+            a = np.empty(shape, np.float32)
+            a[...] = i + 1000 * self.epoch
+            a.reshape(-1)[:64] = rng.standard_normal(64)
+            out[k] = a
+        return out
+
+
+def test_process_loader_batches_to_card(dev):
+    """The process loader's pinned batches, copied to the card without
+    blocking, equal the batches the same loader drains on the CPU, over
+    two epochs."""
+    from asva_tpu_torch.data.loader import DataLoader
+    from asva_tpu_torch.parallel.multihost import make_global_batch
+
+    def run(to_card):
+        dl = DataLoader(_Items(14, {"x": (3, 40, 40, 3), "y": (500,)}), 4,
+                        shuffle=True, seed=3, num_workers=3,
+                        worker_mode="process", prefetch=1)
+        try:
+            out = []
+            for _ in range(2):
+                for b in dl:
+                    assert all(v.is_pinned() for v in b.values())
+                    out.append(make_global_batch(b, dev) if to_card else b)
+            torch.cuda.synchronize()
+            return out
+        finally:
+            dl.close()
+    card, host = run(True), run(False)
+    assert len(card) == len(host) == 6
+    for c, h in zip(card, host):
+        for k in h:
+            assert c[k].device.type == "cuda"
+            assert torch.equal(c[k].cpu(), h[k])
+
+
+def test_full_width_global_batch_while_next_is_made(dev):
+    """A multipair training batch at full width (4 items of 21 clips of
+    12x224x224 frames and 2 s of audio, 607 MB) lands on the card intact
+    while the loader's workers write the next batches into the slabs."""
+    from asva_tpu_torch.data.loader import DataLoader
+    from asva_tpu_torch.parallel.multihost import make_global_batch
+    ds = _Items(12, {"videos": (21, 12, 224, 224, 3),
+                     "waveforms": (21, 32000)})
+    dl = DataLoader(ds, 4, shuffle=True, seed=1, num_workers=4,
+                    worker_mode="process", prefetch=1)
+    try:
+        sent = []
+        for b in dl:
+            sent.append((b["index"].tolist(), make_global_batch(b, dev)))
+        torch.cuda.synchronize()
+    finally:
+        dl.close()
+    assert len(sent) == 3
+    for ids, batch in sent:
+        assert batch["index"].tolist() == ids
+        for row, i in enumerate(ids):
+            want = ds[i]
+            for k in ("videos", "waveforms"):
+                assert torch.equal(batch[k][row].cpu(),
+                                   torch.from_numpy(want[k]))
