@@ -31,15 +31,51 @@ from torch import nn
 from torch.nn import functional as F
 
 
+def _stats_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32, or x's dtype where that is wider."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+class _ChannelMoments(torch.autograd.Function):
+    """(2, C): the per-channel sum and sum of squares of x (b, C, ...), in
+    fp32 at least.  Saves x itself for the backward, not a wider copy."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        dims = [0] + list(range(2, x.dim()))
+        wide = x.to(_stats_dtype(x))
+        return torch.stack([wide.sum(dims), wide.square().sum(dims)])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, = ctx.saved_tensors
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        return (grad[0].view(shape) + 2.0 * x.to(grad.dtype)
+                * grad[1].view(shape)).to(x.dtype)
+
+
 class _BiasedVarianceBatchNorm:
     """Training mode of torch's BatchNorm with flax's running-variance
     update: the batch normalises itself (`F.batch_norm` without running
     buffers), and the running statistics take the batch mean and the biased
-    batch variance, both reduced in fp32."""
+    batch variance, both reduced in fp32.
+
+    Across processes the batch is the global one, as flax's `batch_stats`
+    are under a batch sharded by the partitioner: the ranks' per-channel
+    counts, sums and sums of squares are summed in fp32 (at least) by one
+    differentiable all-reduce over `process_group` (None: the default
+    group), and both the normalisation and the running statistics use the
+    global mean and biased variance.  `nn.SyncBatchNorm` does not serve: it
+    refuses CPU tensors and stores the unbiased variance."""
+
+    process_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if _world_size(self.process_group) > 1:
+            return self._global_forward(x)
         with torch.no_grad():
             dims = [0] + list(range(2, x.dim()))
             var, mean = torch.var_mean(x.detach().float(), dims, correction=0)
@@ -51,6 +87,39 @@ class _BiasedVarianceBatchNorm:
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        from ...parallel.reduce import all_reduce_sum
+        c = x.shape[1]
+        count = x.new_full((1,), x.numel() // c, dtype=_stats_dtype(x))
+        stats = all_reduce_sum(
+            torch.cat([_ChannelMoments.apply(x).reshape(-1), count]),
+            self.process_group)
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = (stats[c:2 * c] / n - mean.square()).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(
+                mean.detach().to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(
+                var.detach().to(self.running_var.dtype), alpha=m)
+            self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps)
+        if self.weight is not None:
+            scale = scale * self.weight
+        shift = -mean * scale
+        if self.bias is not None:
+            shift = shift + self.bias
+        shape = [1, c] + [1] * (x.dim() - 2)
+        return (x * scale.view(shape) + shift.view(shape)).to(x.dtype)
+
+
+def _world_size(group) -> int:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size(group)
+    return 1
 
 
 class BatchNorm2d(_BiasedVarianceBatchNorm, nn.BatchNorm2d):

@@ -2,7 +2,7 @@
 of asva_tpu/observability.py:
 
   * MetricsLogger — append-only JSONL metrics stream, optionally mirrored to
-    wandb when it is importable;
+    wandb when it is importable; written by rank 0 only;
   * profile_steps — a torch.profiler trace around the enclosed steps
     (a Chrome trace in `logdir`);
   * GracefulShutdown — SIGTERM/SIGINT set `.requested`, so the train loop
@@ -24,13 +24,20 @@ from typing import Optional
 
 class MetricsLogger:
     """JSONL metrics sink; `log_with="wandb"` mirrors every record when wandb
-    is importable and degrades to JSONL only, with a warning, otherwise."""
+    is importable and degrades to JSONL only, with a warning, otherwise.
+
+    Across processes only rank 0 opens the file and wandb, and `log` is a
+    no-op elsewhere: the logged values are the cross-rank means already,
+    and several ranks appending one record each would repeat it."""
 
     def __init__(self, path: str, log_with: Optional[str] = None,
                  run_name: Optional[str] = None, config: Optional[dict] = None):
+        from .parallel.multihost import process_index
+        self._f = self._wandb = None
+        if process_index() != 0:
+            return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         self._f = open(path, "a", buffering=1)
-        self._wandb = None
         if log_with == "wandb":
             try:
                 import wandb

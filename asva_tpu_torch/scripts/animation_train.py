@@ -1,9 +1,11 @@
 """AVSyncD diffusion fine-tuning.  Port of scripts/animation_train.py (the
-reference's animation_train), on one process, plus `--device`:
+reference's animation_train), plus `--device`:
 
     python3 -m asva_tpu_torch.scripts.animation_train --config_file \
         configs/audio-cond_animation/avsync15_audio-cond_cfg.yaml \
         [--max_steps_override N] [--device cpu]
+    torchrun --nproc_per_node 2 -m asva_tpu_torch.scripts.animation_train \
+        --config_file ... --device cuda     # data parallel over 2 ranks
 
 One YAML config drives the job (the reference's files parse unchanged).
 `main` parses the flags and builds the dataset; `train` holds the loop:
@@ -13,6 +15,13 @@ kept on the device until a log boundary, checkpoints at `should_save` with
 the `unet` and `audio_encoder` exports and the loader's state, resume from
 the latest checkpoint (the loader's state included), a last checkpoint on
 SIGTERM/SIGINT and a final forced one.
+
+Across processes (torchrun's environment, `parallel.multihost`) each rank
+trains a replica on its shard of every epoch (`batch_size` items a rank),
+draws its rows of one global draw, and takes the ranks' mean gradient once
+per optimizer step: the step of one process on the global batch.  Rank 0's
+replica is broadcast after the build and after a restore; rank 0 alone
+writes checkpoints and metrics; the logged loss is the ranks' mean.
 """
 from __future__ import annotations
 
@@ -28,8 +37,8 @@ def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--config_file", required=True)
     p.add_argument("--fsdp", type=int, default=1,
-                   help="must be 1: one card holds the model; sharding "
-                        "across processes is ROADMAP A7")
+                   help="must be 1: every rank holds a replica of the "
+                        "model; sharding it (FSDP) is ROADMAP A item 2")
     p.add_argument("--max_steps_override", type=int, default=None)
     p.add_argument("--profile_dir", default=None,
                    help="capture a torch.profiler trace of steps 10-15 here")
@@ -62,8 +71,10 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
           profile_dir=None) -> dict:
     """Train the AVSyncD UNet of `cfg` (an AnimationJobConfig) on `dataset`
     until `max_steps` optimizer steps (default cfg.optim.max_train_steps),
-    through a DataLoader of 8 threads.  Returns {"state": TrainState,
-    "losses": [the last micro-batch's loss of each step taken here],
+    through a DataLoader of 8 threads.  Under a process group `device` is
+    resolved to this local rank's (`parallel.make_mesh`).  Returns {"state":
+    TrainState, "losses": [the last micro-batch's loss of each step taken
+    here, the ranks' mean],
     "step_times": [time.perf_counter() after each step], "loader": the
     loader's state at the end, "resumed_from": a step or None}."""
     import torch
@@ -71,7 +82,9 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
     from ..data.loader import DataLoader
     from ..observability import (GracefulShutdown, MetricsLogger,
                                  profile_steps)
+    from ..parallel import batch_sharding, make_mesh, replicate
     from ..parallel.multihost import globalize_host_local, make_global_batch
+    from ..parallel.reduce import all_reduce_mean_
     from ..runtime import (build_audio_encoder, build_unet, build_vae,
                            load_null_text_encoding)
     from ..training import (AnimationTrainConfig, AnimationTrainer,
@@ -84,6 +97,10 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
     max_steps = max_steps or cfg.optim.max_train_steps
     log = setup_logging(os.path.join(cfg.output_dir, "train.log"))
     log.info("config: %s", cfg)
+    mesh = make_mesh(device)
+    device = mesh.device
+    log.info("mesh: rank %d of %d on %s %s", mesh.rank, mesh.world, device,
+             mesh.backend)
     dtype = compute_dtype(device)
 
     # models: the UNet grafted from SD1.5 2D weights when they are present
@@ -99,6 +116,8 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
                     weights_dir=(os.path.join(pretrained, "vae")
                                  if pretrained else None))
     audio = build_audio_encoder(cfg.n_segment, device=device, dtype=dtype)
+    for module in (unet, vae, audio):
+        replicate(mesh, module)
     null_text = load_null_text_encoding(cfg.null_text_encoding_path, device)
     if null_text is None:
         null_text = torch.zeros((1, 77, 768), device=device)
@@ -133,11 +152,14 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
             resumed_from, saved = restored
             state.load_state_dict(saved)
             del saved
+            replicate(mesh, unet)
+            replicate(mesh, optimizer.mu + optimizer.nu)
             resumed_extra = ckpt.restore_extra(resumed_from)
             log.info("resumed from step %d", resumed_from)
 
     loader = DataLoader(dataset, cfg.batch_size, shuffle=True,
-                        num_workers=8, seed=cfg.seed, shard=(0, 1))
+                        num_workers=8, seed=cfg.seed,
+                        shard=batch_sharding(mesh))
     if resumed_extra and "loader" in resumed_extra:
         loader.load_state_dict(resumed_extra["loader"])
         log.info("data order resumed at epoch %d batch %d", loader.epoch,
@@ -166,9 +188,13 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
     losses, step_times = [], []
 
     def flush():
-        for dev_loss in pending:
-            losses.append(float(dev_loss))
-            meter.update(losses[-1])
+        """The pending losses, the ranks' mean, in one reduction."""
+        if pending:
+            mean = torch.stack(pending)
+            all_reduce_mean_([mean], mesh)
+            for loss in mean.tolist():
+                losses.append(loss)
+                meter.update(loss)
         pending.clear()
 
     stop = False
@@ -181,7 +207,8 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
                     {"videos": batch["video"],
                      "waveforms": batch["waveform"],
                      "text_encodings": batch["text_encoding"]}, device)
-                loss, grads = trainer.grad_step(state, dev_batch, gen)
+                loss, grads = trainer.grad_step(state, dev_batch, gen,
+                                                mesh=mesh)
                 del dev_batch
                 if accum > 1:
                     acc_grads = grads if acc_grads is None else [
@@ -191,7 +218,7 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
                         continue
                     grads = [g / accum for g in acc_grads]
                     acc_grads, acc_count = None, 0
-                trainer.apply_step(state, grads)
+                trainer.apply_step(state, grads, mesh)
                 del grads
                 step = state.step
                 pending.append(loss)
@@ -238,11 +265,11 @@ def main(argv=None):
     p = parser()
     args = p.parse_args(argv)
     if args.fsdp != 1:
-        p.error("--fsdp must be 1: one card holds the model, and sharding "
-                "across processes is ROADMAP A7")
+        p.error("--fsdp must be 1: every rank holds a replica of the model, "
+                "and sharding it (FSDP) is ROADMAP A item 2")
     from ..config import AnimationJobConfig
     from ..parallel.multihost import maybe_initialize_distributed
-    maybe_initialize_distributed()
+    maybe_initialize_distributed(args.device)
     cfg = AnimationJobConfig.from_yaml(args.config_file)
     return train(cfg, build_dataset(cfg), args.device,
                  args.max_steps_override or cfg.optim.max_train_steps,

@@ -4,7 +4,9 @@ the centre audio is scored against all 31 video clips (A2V) and the centre
 video against all 31 audio clips (V2A); a predicted index within
 `--tolerance` of the centre counts as correct.  Records are gathered with
 each example index once (a decode failure moves an item to the next
-example, which another position may also read).
+example, which another position may also read).  Under torchrun each rank
+evaluates its shard (`--shard` defaults to (rank, world)), the records of
+all ranks are merged, and rank 0 prints the accuracies.
 
     python3 -m asva_tpu_torch.scripts.avsync_eval --data_root <videos> \
         --example_list_path <test.txt> --checkpoint_modules_dir <modules> \
@@ -32,13 +34,15 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--shard", type=int, nargs=2, default=None,
                    metavar=("INDEX", "COUNT"),
                    help="evaluate examples[INDEX::COUNT]; defaults to "
-                        "(0, 1), the one process's share")
+                        "(rank, world size) — the records of all ranks are "
+                        "gathered, each example index once")
     add_device_flag(p)
     return p
 
 
 def main(argv=None):
-    """Prints and returns {"indices", "hits" (n, 2), "a2v", "v2a"}."""
+    """Prints (rank 0) and returns, on every rank, {"indices", "hits" (n,
+    2), "a2v", "v2a"} of all ranks' records."""
     args = parser().parse_args(argv)
 
     import os
@@ -48,13 +52,16 @@ def main(argv=None):
 
     from ..data.multipair import MultiPairAVDataset
     from ..ops.mel import waveform_to_mel
+    from ..parallel import batch_sharding, make_mesh
     from ..parallel.multihost import (gather_metric_records,
                                       maybe_initialize_distributed)
     from ..runtime import build_avsync_classifier
 
-    maybe_initialize_distributed()
+    maybe_initialize_distributed(args.device)
+    mesh = make_mesh(args.device)
+    args.device = mesh.device
     if args.shard is None:
-        args.shard = (0, 1)
+        args.shard = batch_sharding(mesh)
 
     wd = None
     if args.checkpoint_modules_dir:
@@ -102,8 +109,10 @@ def main(argv=None):
     if len(merged) == 0:
         raise SystemExit("no examples evaluated (empty dataset shard?)")
     acc = merged.mean(axis=0)
-    print(f"A2V sync acc: {float(acc[0]):.4f} over {len(merged)} examples")
-    print(f"V2A sync acc: {float(acc[1]):.4f}")
+    if mesh.rank == 0:
+        print(f"A2V sync acc: {float(acc[0]):.4f} over {len(merged)} "
+              "examples")
+        print(f"V2A sync acc: {float(acc[1]):.4f}")
     return {"indices": uniq, "hits": merged, "a2v": float(acc[0]),
             "v2a": float(acc[1])}
 

@@ -1,9 +1,11 @@
 """AVSync classifier contrastive training.  Port of scripts/avsync_train.py
-(the reference's avsync_train), on one process, plus `--device`:
+(the reference's avsync_train), plus `--device`:
 
     python3 -m asva_tpu_torch.scripts.avsync_train --config_file \
         configs/avsync/vggss_sync_contrast.yaml [--max_steps_override N] \
         [--device cpu]
+    torchrun --nproc_per_node 2 -m asva_tpu_torch.scripts.avsync_train \
+        --config_file ... --device cuda     # data parallel over 2 ranks
 
 k=21 time-shifted clips per video, symmetric InfoNCE over the k x k pair
 score matrix, a periodic in-train eval over the test loader, step and
@@ -12,6 +14,12 @@ resume from the latest checkpoint, a last checkpoint on SIGTERM/SIGINT and
 a final forced one.  The training items come through the loader's process
 workers: a 21-clip item holds the interpreter lock for most of its decode,
 so threads cannot feed a step.
+
+Across processes each rank trains a replica on its shard of the train and
+test loaders; BatchNorm normalises by the global batch's statistics, the
+gradients and the logged metrics are the ranks' means (one reduction a
+step), `evaluate` sums every rank's batches, rank 0's replica is broadcast
+after the build and after a restore, and rank 0 alone writes checkpoints.
 """
 from __future__ import annotations
 
@@ -57,11 +65,13 @@ def train(cfg, train_dataset, test_dataset, device="cuda",
     """Train the AVSync classifier of `cfg` (a SyncJobConfig) on
     `train_dataset`, evaluating on `test_dataset` every cfg.test_steps,
     until `max_steps` steps (default cfg.optim.max_train_steps).  The train
-    loader forks one worker process per CPU core.  Returns
+    loader forks one worker process per CPU core.  Under a process group
+    `device` is resolved to this local rank's.  Returns
     {"state", "trainer", "test_loader", "metrics": [per step],
     "step_times", "loader", "resumed_from"}."""
     from ..data.loader import DataLoader
     from ..observability import GracefulShutdown
+    from ..parallel import batch_sharding, make_mesh, replicate
     from ..parallel.multihost import globalize_host_local, make_global_batch
     from ..runtime import build_avsync_classifier, init_avsync_from_avid_cma
     from ..training import (SyncContrastiveTrainer, SyncTrainState,
@@ -71,6 +81,10 @@ def train(cfg, train_dataset, test_dataset, device="cuda",
 
     max_steps = max_steps or cfg.optim.max_train_steps
     log = setup_logging(os.path.join(cfg.output_dir, "train.log"))
+    mesh = make_mesh(device)
+    device = mesh.device
+    log.info("mesh: rank %d of %d on %s %s", mesh.rank, mesh.world, device,
+             mesh.backend)
 
     clf = build_avsync_classifier(device=device, seed=cfg.seed, train=True)
     wanted = tuple(m for m, on in (("audio", cfg.audio_pretrained),
@@ -83,6 +97,7 @@ def train(cfg, train_dataset, test_dataset, device="cuda",
                 "config requests AVID-CMA pretrained encoders but %s is "
                 "missing — training from scratch will NOT reproduce the "
                 "reference protocol", cfg.avid_cma_path)
+    replicate(mesh, clf)
 
     trainer = SyncContrastiveTrainer(clf, tau=cfg.tau,
                                      compute_dtype=compute_dtype(device))
@@ -103,20 +118,22 @@ def train(cfg, train_dataset, test_dataset, device="cuda",
     if restored is not None:
         resumed_from, saved = restored
         state.load_state_dict(saved)
+        replicate(mesh, clf)
+        replicate(mesh, optimizer.mu + optimizer.nu)
         resumed_extra = ckpt.restore_extra(resumed_from)
         log.info("resumed from step %d", resumed_from)
 
     train_loader = DataLoader(train_dataset, cfg.batch_size, shuffle=True,
                               num_workers=os.cpu_count() or 8,
                               seed=cfg.seed, worker_mode="process",
-                              shard=(0, 1))
+                              shard=batch_sharding(mesh))
     if resumed_extra and "loader" in resumed_extra:
         train_loader.load_state_dict(resumed_extra["loader"])
         log.info("data order resumed at epoch %d batch %d",
                  train_loader.epoch, train_loader._cursor)
     test_loader = DataLoader(test_dataset, cfg.test_batch_size,
                              shuffle=False, num_workers=8, drop_last=False,
-                             shard=(0, 1))
+                             shard=batch_sharding(mesh))
     if len(train_loader) == 0:
         raise ValueError("dataset smaller than the batch "
                          f"({len(train_loader.dataset)} examples)")
@@ -138,7 +155,7 @@ def train(cfg, train_dataset, test_dataset, device="cuda",
                 dev = make_global_batch({"waveforms": batch["waveforms"],
                                          "videos": batch["videos"]}, device)
                 m = trainer.train_step(state, {"mels": mels_of(
-                    dev["waveforms"]), "videos": dev["videos"]})
+                    dev["waveforms"]), "videos": dev["videos"]}, mesh)
                 del dev
                 step = state.step
                 per_step.append({k: float(v) for k, v in m.items()})
@@ -177,7 +194,8 @@ def evaluate(trainer, test_loader, device, log, step=0,
     """In-train test pass (scripts/avsync_train.py:190-234): eval-mode
     BatchNorm, so accuracies do not depend on the test batch's
     composition; the metrics' batch-size-weighted mean over at most
-    `max_batches` batches, summed over processes."""
+    `max_batches` batches of every rank's shard (the sums and the count
+    gathered over the ranks)."""
     import numpy as np
 
     from ..parallel.multihost import make_global_batch, process_allgather
@@ -215,7 +233,7 @@ def main(argv=None):
     args = parser().parse_args(argv)
     from ..config import SyncJobConfig
     from ..parallel.multihost import maybe_initialize_distributed
-    maybe_initialize_distributed()
+    maybe_initialize_distributed(args.device)
     cfg = SyncJobConfig.from_yaml(args.config_file)
     return train(cfg, build_dataset(cfg, cfg.train_dataset, "train"),
                  build_dataset(cfg, cfg.test_dataset, "test"), args.device,

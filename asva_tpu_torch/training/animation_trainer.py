@@ -27,6 +27,7 @@ from torch import nn
 
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.imagebind_audio import segment_token_indices
+from ..parallel.reduce import all_reduce_mean_
 from .optim import AdamW
 
 
@@ -78,17 +79,26 @@ class AnimationTrainer:
             self._null_audio = self.audio_encoder(zero)[1]
         return self._null_audio
 
-    def draw(self, batch: dict, generator: torch.Generator
+    def draw(self, batch: dict, generator: torch.Generator, mesh=None
              ) -> Dict[str, torch.Tensor]:
         """The five random draws of one loss evaluation: VAE sampling noise
         (b*f, h/8, w/8, 4), timesteps t (b,) in [0, num_train_timesteps),
         diffusion noise (b, f, h/8, w/8, 4) and the two uniform (b, 1, 1)
         dropout draws (a condition is kept where its draw >= the
-        probability)."""
+        probability).
+
+        Across the ranks of `mesh` each draw is made for the global batch
+        (b * world rows, from the same generator on every rank) and this
+        rank keeps its rows [rank * b, (rank + 1) * b) — b * f rows for the
+        VAE noise — as asva_tpu's rows are slices of one global draw; the
+        result does not depend on the number of ranks."""
         videos = batch["videos"]
         b, f, h, w = videos.shape[:4]
         s, lc = self.vae.downscale, self.vae.config.latent_channels
         dev = videos.device
+        world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
+        mine = slice(rank * b, (rank + 1) * b)
+        b *= world
 
         def normal(*shape):
             return torch.randn(shape, generator=generator, device=dev)
@@ -96,7 +106,7 @@ class AnimationTrainer:
         def uniform(*shape):
             return torch.rand(shape, generator=generator, device=dev)
 
-        return {
+        draws = {
             "vae_noise": normal(b * f, h // s, w // s, lc),
             "t": torch.randint(0, self.schedule.num_train_timesteps, (b,),
                                generator=generator, device=dev),
@@ -104,21 +114,27 @@ class AnimationTrainer:
             "text_keep": uniform(b, 1, 1),
             "audio_keep": uniform(b, 1, 1),
         }
+        if world == 1:
+            return draws
+        frames = slice(mine.start * f, mine.stop * f)
+        return {k: v[frames if k == "vae_noise" else mine]
+                for k, v in draws.items()}
 
     def loss_fn(self, batch: dict,
                 generator: Optional[torch.Generator] = None,
-                draws: Optional[Dict[str, torch.Tensor]] = None
-                ) -> torch.Tensor:
+                draws: Optional[Dict[str, torch.Tensor]] = None,
+                mesh=None) -> torch.Tensor:
         """batch: videos (b, f, h, w, 3) in [0, 1], mels (b, 128, 204, 1) or
         waveforms (b, 1, samples) at 16 kHz, text_encodings (b, 77, 768).
-        Randomness: `draws` (see `draw`) or, when None, `generator`."""
+        Randomness: `draws` (see `draw`) or, when None, `generator` (this
+        rank's rows of the global draw under `mesh`)."""
         cfg = self.config
         videos = batch["videos"]
         b, f = videos.shape[:2]
         if draws is None:
             if generator is None:
                 raise ValueError("loss_fn needs a generator or the draws")
-            draws = self.draw(batch, generator)
+            draws = self.draw(batch, generator, mesh)
         mels = batch.get("mels")
         if mels is None:  # on-device mel from raw 16 kHz waveforms
             from ..ops.mel import waveform_to_mel
@@ -167,24 +183,29 @@ class AnimationTrainer:
 
     def grad_step(self, state: TrainState, batch: dict,
                   generator: Optional[torch.Generator] = None,
-                  draws: Optional[Dict[str, torch.Tensor]] = None
-                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                  draws: Optional[Dict[str, torch.Tensor]] = None,
+                  mesh=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """(loss, gradients of the optimizer's parameters, in its order) —
-        trainable-sized, for gradient accumulation."""
-        loss = self.loss_fn(batch, generator, draws)
+        trainable-sized, for gradient accumulation; this rank's own under
+        `mesh` (`apply_step` takes their mean)."""
+        loss = self.loss_fn(batch, generator, draws, mesh)
         grads = torch.autograd.grad(loss, state.optimizer.params)
         return loss.detach(), list(grads)
 
-    def apply_step(self, state: TrainState,
-                   grads: List[torch.Tensor]) -> None:
+    def apply_step(self, state: TrainState, grads: List[torch.Tensor],
+                   mesh=None) -> None:
+        """One optimizer step.  Across the ranks of `mesh` the gradients
+        are first replaced by their mean, once per step and before the
+        optimizer's global-norm clip, as the global batch's gradient is."""
+        all_reduce_mean_(grads, mesh)
         state.optimizer.step(grads)
         state.step += 1
 
     def train_step(self, state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None,
-                   draws: Optional[Dict[str, torch.Tensor]] = None
-                   ) -> torch.Tensor:
-        """One optimizer step on one batch; returns the loss."""
-        loss, grads = self.grad_step(state, batch, generator, draws)
-        self.apply_step(state, grads)
+                   draws: Optional[Dict[str, torch.Tensor]] = None,
+                   mesh=None) -> torch.Tensor:
+        """One optimizer step on one batch; returns this rank's loss."""
+        loss, grads = self.grad_step(state, batch, generator, draws, mesh)
+        self.apply_step(state, grads, mesh)
         return loss

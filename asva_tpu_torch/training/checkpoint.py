@@ -15,6 +15,13 @@ name and renamed; `state.pt` is renamed last, and only a directory that
 holds it counts as a checkpoint.  Loading is
 `torch.load(weights_only=True)`.  Saves are synchronous, so `close()`, which
 the train loops call before they return, has nothing left to wait for.
+
+Across processes (asva_tpu/training/checkpoint.py:52-69, :111, :165, :181)
+every rank calls `save` with its replica of the same state, and only rank 0,
+the primary, writes the files and applies retention; `save` returns on every
+rank once the primary's renames have landed (a bounded barrier on the host
+group).  `restore_latest` restores the step that rank 0 finds, broadcast to
+the others, so the ranks cannot disagree over a directory being written.
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ import shutil
 from typing import Any, Optional
 
 import torch
+
+from ..parallel import multihost
 
 
 def _write_atomic(path: str, write) -> None:
@@ -100,6 +109,15 @@ class CheckpointManager:
         if self._last_saved is None:
             existing = self.existing_steps()
             self._last_saved = existing[-1] if existing else None
+        if multihost.process_index() == 0:
+            self._write(step, state, modules, extra)
+        # the primary's files (and its retention) are in place on return
+        multihost.barrier()
+        self._last_saved = step
+        return True
+
+    def _write(self, step: int, state: dict, modules: Optional[dict],
+               extra: Optional[dict]) -> None:
         path = self._path(step)
         os.makedirs(os.path.join(path, "modules"), exist_ok=True)
         if extra is not None:
@@ -116,16 +134,16 @@ class CheckpointManager:
         prev = self._last_saved
         if prev is not None and prev != step and not self.is_milestone(prev):
             shutil.rmtree(self._path(prev), ignore_errors=True)
-        self._last_saved = step
-        return True
 
     def restore(self, step: int, map_location=None) -> dict:
         return torch.load(os.path.join(self._path(step), "state.pt"),
                           map_location=map_location, weights_only=True)
 
     def restore_latest(self, map_location=None):
-        """(step, state) of the newest complete checkpoint, or None."""
-        step = self.latest_step()
+        """(step, state) of the newest complete checkpoint, or None; across
+        processes the one rank 0 finds, loaded onto `map_location` by every
+        rank."""
+        step = multihost.broadcast_object(self.latest_step())
         if step is None:
             return None
         return step, self.restore(step, map_location)

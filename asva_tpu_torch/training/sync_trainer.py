@@ -28,6 +28,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel.reduce import all_reduce_mean_
 from .optim import AdamW
 
 
@@ -100,10 +101,19 @@ class SyncContrastiveTrainer:
         metrics = _pair_metrics(*self._pair_logits(batch))
         return (metrics["av_loss"] + metrics["va_loss"]) / 2.0, metrics
 
-    def train_step(self, state: SyncTrainState, batch: dict
-                   ) -> Dict[str, torch.Tensor]:
+    def train_step(self, state: SyncTrainState, batch: dict,
+                   mesh=None) -> Dict[str, torch.Tensor]:
+        """One step on this rank's `batch`.  Across the ranks of `mesh` the
+        gradients are their mean before the optimizer (the global batch's,
+        since BatchNorm normalises by the global statistics), and so are
+        the returned metrics: both go in one reduction."""
         loss, metrics = self.loss_fn(batch)
-        grads = torch.autograd.grad(loss, state.optimizer.params)
+        grads = list(torch.autograd.grad(loss, state.optimizer.params))
+        if mesh is not None and mesh.world > 1:
+            stacked = torch.stack([v.detach().float()
+                                   for v in metrics.values()])
+            all_reduce_mean_(grads + [stacked], mesh)
+            metrics = dict(zip(metrics, stacked))
         state.optimizer.step(grads)
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}

@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # needs one NVIDIA H100 (sm_90a)
     python3 chip_smoke.py --profile  # build + one generation request and one
                                      # training step under torch.profiler
+    python3 chip_smoke.py --ranks-only  # build + phase 11 alone
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. build    — nvcc the kernels in asva_tpu_torch/csrc (one process per
@@ -175,8 +176,39 @@ Phases, in order; any failure exits non-zero and prints no result:
                 /healthz then 0 requests), or 200 with three mp4s where
                 libav exists; the server is shut down and its thread
                 joined.  avsync_eval.main on the written clips where libav
-                exists.
-Launch counters are zeroed just before each path run and read just after.
+                exists;
+  11. ranks   — training across 2 processes: this script again as each
+                rank (--phase11-rank), with torchrun's variables on a free
+                localhost port, joined through maybe_initialize_distributed
+                (gloo with both ranks on cuda:0 where the machine has one
+                card, NCCL where each rank has its own); the kernels are
+                already built.  One pair: process_allgather and
+                gather_metric_records against numpy, exactly; an fp32
+                micro-step at full width, batch 1 a rank, against one
+                process on both rows (gradients within 1e-4 relative L2,
+                loss within 1e-5); animation_train.train at phase 10's
+                width, batch 4 a rank x accumulation 2, for 3 steps: the
+                replicas bit-equal after every step (per-tensor digests
+                gathered from both ranks), the step-1 local gradients
+                different, only rank 0's checkpoint files, each once, none
+                temporary, checkpoint-2 kept as a milestone, one metrics
+                record a step, each rank's cursor its own batches; the
+                classifier step against one process on all the items: in
+                fp32 on 2 items a rank (running statistics within 1e-4
+                relative L2; the gradients' distance printed beside that of
+                one process from itself with the items' halves swapped,
+                about 1e-2: the video tower's BatchNorm backward cancels
+                most of its gradient) and in fp64 on 1 item a rank
+                (gradients and running statistics within 1e-4);
+                avsync_train.train at the VGGSS
+                sizes a rank, 2 steps, the replicas and running statistics
+                bit-equal after each, and evaluate equal to the ranks'
+                batch-weighted mean.  A fresh pair resumes animation_train
+                from checkpoint-2 to 3: loss and parameter digests equal
+                to the uninterrupted run's.  A rank that fails or hangs
+                kills both and fails the phase with its output's end.
+Launch counters are zeroed just before each path run and read just after
+(in each rank for phase 11).
 
 Tolerances (max |kernel - plain| over an output):
   fp32  <= 1e-4 * max(1, max|plain|): fp32 products; only the summation
@@ -2025,12 +2057,11 @@ def _timed_saves(marks):
     """Record (step, card idle, save done) host times of every checkpoint
     written: the card is synchronised before the save, so a step's time is
     from the previous save's end to its own synchronisation."""
-    import torch
     from asva_tpu_torch.training.checkpoint import CheckpointManager
     orig = CheckpointManager.save
 
     def save(self, step, *a, **kw):
-        torch.cuda.synchronize()
+        _sync()
         synced = time.perf_counter()
         saved = orig(self, step, *a, **kw)
         if saved:
@@ -2492,6 +2523,646 @@ def phase_cli(report):
     return train_counts, serve_counts
 
 
+# ------------------------------------------------------------ phase 11 ---
+
+RANKS = 2
+RANK_FLAG = "--phase11-rank"
+RANK_COMMAND = [sys.executable, os.path.abspath(__file__)]
+RANKS_TIMEOUT_S = 600
+DEVICE = "cuda"
+RANK_ITEMS = 48       # ChipClips: 24 a rank, 6 batches of 4 an epoch
+SYNC_REDUCED_B = 2    # items a rank in the fp32 classifier comparison
+
+
+def _sync():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _peak():
+    import torch
+    return torch.cuda.max_memory_allocated() if torch.cuda.is_available() \
+        else None
+
+
+def _digest(tensors):
+    """(n, 2) int64: each tensor's sum of its bit patterns and their
+    position-weighted sum (wrapping); bit-equal tensors give equal rows,
+    and one changed bit changes both."""
+    import torch
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    rows = []
+    with torch.no_grad():
+        for t in tensors:
+            bits = t.detach().contiguous().view(
+                ints[t.element_size()]).reshape(-1).long()
+            w = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+            rows.append(torch.stack([bits.sum(), (bits * w).sum()]))
+        return torch.stack(rows).cpu().numpy()
+
+
+def _gathered_digests(tensors):
+    """Every rank's digests of its `tensors`, (ranks, n, 2)."""
+    from asva_tpu_torch.parallel import multihost
+    return multihost.process_allgather(_digest(tensors), tiled=False)
+
+
+def _same(gathered) -> bool:
+    return bool((gathered == gathered[0]).all())
+
+
+def _rel_l2(got, want) -> float:
+    num = sum(float((a.double() - b.double()).square().sum())
+              for a, b in zip(got, want))
+    den = sum(float(b.double().square().sum()) for b in want)
+    return math.sqrt(num / den)
+
+
+def rank_gathers(mesh, spec, tmp):
+    """process_allgather tiled and stacked; gather_metric_records with
+    ragged counts, an index on both ranks and, second, an empty rank with
+    value_shape; each against the numpy answer, exactly."""
+    import numpy as np
+    from asva_tpu_torch.parallel import multihost
+    parts = [np.arange(6, dtype=np.float64).reshape(2, 3) + 100 * r
+             for r in range(mesh.world)]
+    tiled = multihost.process_allgather(parts[mesh.rank])
+    stacked = multihost.process_allgather(parts[mesh.rank], tiled=False)
+    records = [([5, 1, 3], [[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]]),
+               ([3, 7], [[0.0, 0.0], [1.0, 0.0]])]
+    empty = [([4, 2], [[1.0, 1.0], [0.0, 1.0]]), ([], [])]
+    got = [multihost.gather_metric_records(*records[mesh.rank]),
+           multihost.gather_metric_records(*empty[mesh.rank],
+                                           value_shape=(2,))]
+    want = []
+    for recs in (records, empty):
+        idx = np.concatenate([np.asarray(i, np.int64) for i, _ in recs])
+        vals = np.concatenate([np.asarray(v, np.float64).reshape(-1, 2)
+                               for _, v in recs])
+        uniq, first = np.unique(idx, return_index=True)
+        want.append((uniq, vals[first]))
+    exact = (np.array_equal(tiled, np.concatenate(parts))
+             and np.array_equal(stacked, np.stack(parts))
+             and all(np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
+                     for g, w in zip(got, want)))
+    return dict(exact=exact, records=[g[0].tolist() for g in got],
+                values=[g[1].tolist() for g in got])
+
+
+def rank_fp32_step(mesh, spec, tmp):
+    """One fp32 micro-step at full width, batch 1 a rank, its gradients'
+    mean; rank 0 then takes the step of one process on both rows with the
+    same draws (no collective) and compares."""
+    import torch
+    from asva_tpu_torch.parallel import multihost
+    from asva_tpu_torch.parallel.reduce import all_reduce_mean_
+    trainer, state, batch, _ = build_trainer(torch.float32, mesh.world)
+    mine = {k: v[mesh.rank:mesh.rank + 1] for k, v in batch.items()}
+    loss, grads = trainer.grad_step(state, mine, _gen(600), mesh=mesh)
+    local = _gathered_digests(grads)
+    all_reduce_mean_(grads, mesh)
+    loss = loss.reshape(1).clone()
+    all_reduce_mean_([loss], mesh)
+    out = dict(local_grads_differ=not _same(local),
+               reduced_grads_equal=_same(_gathered_digests(grads)),
+               loss_two_ranks=float(loss))
+    if mesh.rank == 0:
+        loss1, grads1 = trainer.grad_step(state, batch, _gen(600))
+        out.update(loss_one_process=float(loss1),
+                   grad_rel_l2=_rel_l2(grads, grads1))
+        del grads1
+    multihost.barrier()
+    del trainer, state, batch, grads
+    return out
+
+
+def _step_seconds_of(steps, marks):
+    """Seconds of each step after the first: from the later of the
+    previous step's end (its digests gathered) and its save's end to the
+    synchronisation after this step's optimizer."""
+    saved = {m[0]: m[2] for m in marks}
+    return [round(b["t_end"] - max(a["t_ready"], saved.get(a["step"], 0.0)),
+                  4) for a, b in zip(steps, steps[1:])]
+
+
+def rank_animation(mesh, spec, tmp):
+    """animation_train.train on this rank's shard of ChipClips: after every
+    step the replicas' digests, before the first the local gradients', the
+    all-reduce's seconds and bytes, the files this rank wrote, the batches
+    it took, and its launches."""
+    import hashlib
+
+    from asva_tpu_torch.config import AnimationJobConfig
+    from asva_tpu_torch.parallel import multihost
+    from asva_tpu_torch.scripts import animation_train
+    from asva_tpu_torch.training import animation_trainer, checkpoint
+    name = spec["run"]
+    cfg = AnimationJobConfig.from_yaml(spec[name])
+    steps, reduces, written, batches, first = [], [], [], [0], {}
+    trainer_cls = animation_trainer.AnimationTrainer
+    orig = (trainer_cls.apply_step, trainer_cls.grad_step,
+            animation_trainer.all_reduce_mean_, checkpoint._write_atomic)
+
+    def grad_step(self, *a, **kw):
+        batches[0] += 1
+        return orig[1](self, *a, **kw)
+
+    def all_reduce_mean_(tensors, m):
+        tensors = list(tensors)
+        _sync()
+        multihost.barrier()
+        t0 = time.perf_counter()
+        nbytes = orig[2](tensors, m)
+        _sync()
+        reduces.append((time.perf_counter() - t0, nbytes))
+        return nbytes
+
+    def apply_step(self, state, grads, mesh=None):
+        if not first:
+            first["local_grads_differ"] = not _same(_gathered_digests(grads))
+        orig[0](self, state, grads, mesh)
+        _sync()
+        t_end = time.perf_counter()
+        digests = _gathered_digests(state.optimizer.params)
+        steps.append(dict(step=state.step, t_end=t_end,
+                          replicas_equal=_same(digests),
+                          digest=hashlib.sha256(digests[0].tobytes())
+                          .hexdigest(), t_ready=time.perf_counter()))
+
+    def write(path, fn):
+        written.append(os.path.relpath(path, cfg.output_dir))
+        orig[3](path, fn)
+    trainer_cls.apply_step, trainer_cls.grad_step = apply_step, grad_step
+    animation_trainer.all_reduce_mean_ = all_reduce_mean_
+    checkpoint._write_atomic = write
+    marks = []
+    try:
+        reset_counts()
+        with _timed_saves(marks):
+            res = animation_train.train(
+                cfg, ChipClips(RANK_ITEMS, cfg.dataset, cfg.seed), DEVICE, 3)
+        counts = read_counts()
+    finally:
+        (trainer_cls.apply_step, trainer_cls.grad_step,
+         animation_trainer.all_reduce_mean_, checkpoint._write_atomic) = orig
+    out = dict(run=name, losses=res["losses"], step=res["state"].step,
+               resumed_from=res["resumed_from"], loader=res["loader"],
+               batches=batches[0], steps=steps, written=written,
+               seconds_per_step=_step_seconds_of(steps, marks),
+               save_seconds=[round(m[2] - m[1], 3) for m in marks],
+               allreduce_seconds=[round(t, 4) for t, _ in reduces],
+               allreduce_bytes=[n for _, n in reduces], launches=counts,
+               **first)
+    del res
+    return out
+
+
+def _classifier_step(mesh, cfg, batch, rows, step_mesh, dtype, group=None):
+    """One classifier step in `dtype` on `batch`'s `rows`: (the gradients
+    the optimizer took, the running statistics after the step).  `group`:
+    every BatchNorm's process group (a group of one normalises by its own
+    batch)."""
+    import torch
+    from asva_tpu_torch.models.avsync.classifier import (
+        _BiasedVarianceBatchNorm)
+    from asva_tpu_torch.runtime import build_avsync_classifier
+    from asva_tpu_torch.scripts.avsync_train import mels_of
+    from asva_tpu_torch.training import (SyncContrastiveTrainer,
+                                         SyncTrainState, build_optimizer)
+    clf = build_avsync_classifier(device=mesh.device, seed=cfg.seed,
+                                  train=True).to(dtype)
+    if group is not None:
+        for module in clf.modules():
+            if isinstance(module, _BiasedVarianceBatchNorm):
+                module.process_group = group
+    state = SyncTrainState(0, clf, build_optimizer(
+        clf, cfg.optim.learning_rate))
+    taken = []
+    opt_step = state.optimizer.step
+
+    def record(grads):
+        taken.extend(g.detach().clone() for g in grads)
+        return opt_step(grads)
+    state.optimizer.step = record
+    wav = torch.as_tensor(batch["waveforms"][rows]).to(mesh.device, dtype)
+    vid = torch.as_tensor(batch["videos"][rows]).to(mesh.device, dtype)
+    SyncContrastiveTrainer(clf, tau=cfg.tau).train_step(
+        state, {"mels": mels_of(wav), "videos": vid}, step_mesh)
+    stats = [b.detach().clone() for n, b in clf.named_buffers()
+             if "running" in n]
+    return taken, stats
+
+
+def rank_sync_steps(mesh, spec, tmp):
+    """The classifier step across the ranks (global BatchNorm statistics,
+    the gradients' mean) against one process on all the items, on rank 0
+    (its BatchNorms in a group of one): in fp32 on SYNC_REDUCED_B items a
+    rank, beside the distance of one process from itself with the ranks'
+    halves swapped (the same function summed in another order), and in
+    fp64 on one item a rank.  fp32 cannot hold the gradients closer than
+    that floor: the training-mode BatchNorm backward of the video tower
+    cancels most of the gradient it receives, and rounding is what is
+    left."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from asva_tpu_torch.config import SyncJobConfig
+    from asva_tpu_torch.data.loader import _collate
+    from asva_tpu_torch.parallel import multihost
+    cfg = SyncJobConfig.from_yaml(spec["sync"])
+    n = SYNC_REDUCED_B * mesh.world
+    items = ChipPairs(n, cfg.train_dataset, cfg.seed)
+    batch = _collate([items[i] for i in range(n)])
+    batch = {k: np.asarray(batch[k], np.float64)
+             for k in ("waveforms", "videos")}
+    solo = dist.new_group([0])
+    out = {}
+    for dtype, per_rank in ((torch.float32, SYNC_REDUCED_B),
+                            (torch.float64, 1)):
+        rows = slice(mesh.rank * per_rank, (mesh.rank + 1) * per_rank)
+        grads, stats = _classifier_step(mesh, cfg, batch, rows, mesh, dtype)
+        res = dict(items_per_rank=per_rank,
+                   grads_equal=_same(_gathered_digests(grads)),
+                   stats_equal=_same(_gathered_digests(stats)))
+        if mesh.rank == 0:
+            both = slice(0, per_rank * mesh.world)
+            grads1, stats1 = _classifier_step(mesh, cfg, batch, both, None,
+                                              dtype, solo)
+            res.update(grad_rel_l2=_rel_l2(grads, grads1),
+                       stats_rel_l2=_rel_l2(stats, stats1))
+            if dtype == torch.float32:
+                swapped = list(range(per_rank, 2 * per_rank)) + list(
+                    range(per_rank))
+                grads2, stats2 = _classifier_step(mesh, cfg, batch, swapped,
+                                                  None, dtype, solo)
+                res.update(grad_rel_l2_order_swapped=_rel_l2(grads2, grads1),
+                           stats_rel_l2_order_swapped=_rel_l2(stats2, stats1))
+                del grads2, stats2
+            del grads1, stats1
+        del grads, stats
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        multihost.barrier()
+        out[str(dtype).split(".")[-1]] = res
+    return out
+
+
+def rank_sync(mesh, spec, tmp):
+    """avsync_train.train on this rank's shard of ChipPairs (the VGGSS
+    sizes a rank) for 2 steps, the replicas' digests (parameters and
+    running statistics) after each; then evaluate over one test batch a
+    rank, whose mean must be the batch-weighted mean of every rank's
+    metrics."""
+    import logging
+
+    import numpy as np
+    from asva_tpu_torch.config import SyncJobConfig
+    from asva_tpu_torch.parallel import multihost
+    from asva_tpu_torch.scripts import avsync_train
+    from asva_tpu_torch.training import sync_trainer
+    cfg = SyncJobConfig.from_yaml(spec["sync"])
+    b, tb = cfg.batch_size, cfg.test_batch_size
+    cls = sync_trainer.SyncContrastiveTrainer
+    orig = (cls.train_step, cls.eval_metrics)
+    replicas, evals = [], []
+
+    def train_step(self, state, batch, mesh=None):
+        metrics = orig[0](self, state, batch, mesh)
+        clf = state.classifier
+        tensors = list(clf.parameters()) + [
+            buf for n, buf in clf.named_buffers() if "running" in n]
+        replicas.append(_same(_gathered_digests(tensors)))
+        return metrics
+
+    def eval_metrics(self, batch):
+        metrics = orig[1](self, batch)
+        evals.append(({k: float(v) for k, v in metrics.items()},
+                      len(batch["videos"])))
+        return metrics
+    cls.train_step, cls.eval_metrics = train_step, eval_metrics
+    try:
+        res = avsync_train.train(
+            cfg, ChipPairs(2 * b * mesh.world, cfg.train_dataset, cfg.seed),
+            ChipPairs(tb * mesh.world, cfg.test_dataset, cfg.seed), DEVICE,
+            2)
+        evals.clear()
+        mean = avsync_train.evaluate(res["trainer"], res["test_loader"],
+                                     mesh.device,
+                                     logging.getLogger("chip_smoke"), step=2,
+                                     max_batches=1)
+    finally:
+        cls.train_step, cls.eval_metrics = orig
+    names = sorted(mean)
+    local = [sum(m[k] * n for m, n in evals) for k in names]
+    totals = multihost.process_allgather(
+        np.array([local + [float(sum(n for _, n in evals))]])).sum(axis=0)
+    want = dict(zip(names, (totals[:-1] / totals[-1]).tolist()))
+    step_s = [round(y - x, 4) for x, y in zip(res["step_times"],
+                                              res["step_times"][1:])]
+    out = dict(replicas_equal=replicas, metrics=res["metrics"],
+               evaluate=mean, evaluate_want=want, evaluated=len(evals),
+               evaluate_matches=all(abs(mean[k] - want[k])
+                                    <= 1e-12 * max(1.0, abs(want[k]))
+                                    for k in names),
+               seconds_after_first_step=step_s, loader=res["loader"])
+    del res
+    return out
+
+
+RANK_JOBS = {"train": (("gathers", rank_gathers), ("fp32", rank_fp32_step),
+                       ("animation", rank_animation),
+                       ("sync_steps", rank_sync_steps), ("sync", rank_sync)),
+             "resume": (("animation", rank_animation),)}
+
+
+def rank_worker(job, tmp) -> int:
+    """One rank of phase 11: join the group through
+    maybe_initialize_distributed, run the job's parts, write
+    <tmp>/<job>.<rank>.json."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from asva_tpu_torch.parallel import make_mesh, multihost
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    multihost.maybe_initialize_distributed(DEVICE)
+    mesh = make_mesh(DEVICE)
+    with open(os.path.join(tmp, "spec.json")) as f:
+        spec = json.load(f)
+    spec["run"] = {"train": "uninterrupted", "resume": "resumed"}[job]
+    res = dict(rank=mesh.rank, world=mesh.world, device=mesh.device,
+               backend=mesh.backend, device_count=torch.cuda.device_count())
+    for name, part in RANK_JOBS[job]:
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res[name] = part(mesh, spec, tmp)
+        res[name].update(seconds=time.perf_counter() - t0,
+                         max_memory_allocated=_peak())
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    with open(os.path.join(tmp, f"{job}.{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _run_ranks(job, tmp):
+    """Start RANKS rank processes of `job` on a free localhost port and wait
+    for both; one that fails or outlives RANKS_TIMEOUT_S kills them all and
+    fails the phase with the end of its output.  Returns (the ranks'
+    results, seconds)."""
+    import shutil
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+               WORLD_SIZE=str(RANKS), LOCAL_WORLD_SIZE=str(RANKS))
+    logs = [os.path.join(tmp, f"{job}.{r}.log") for r in range(RANKS)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(RANKS):
+            env.update(RANK=str(rank), LOCAL_RANK=str(rank))
+            with open(logs[rank], "w") as f:
+                procs.append(subprocess.Popen(
+                    RANK_COMMAND + [RANK_FLAG, job, tmp], env=dict(env),
+                    stdout=f, stderr=subprocess.STDOUT, cwd=ROOT))
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            late = time.perf_counter() - t0 > RANKS_TIMEOUT_S
+            if bad or late:
+                r = bad[0] if bad else codes.index(None)
+                with open(logs[r]) as f:
+                    tail = f.read()[-4000:]
+                fail(f"phase 11 {job}: rank {r} "
+                     + (f"exited {codes[r]}" if bad else
+                        f"still running after {RANKS_TIMEOUT_S} s")
+                     + f":\n{tail}")
+            if all(c == 0 for c in codes):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        out_dir = os.path.join(ROOT, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        for path in logs:
+            if os.path.isfile(path):
+                shutil.copy(path, os.path.join(out_dir,
+                                               "phase11_" + os.path.basename(
+                                                   path)))
+    results = []
+    for r in range(RANKS):
+        with open(os.path.join(tmp, f"{job}.{r}.json")) as f:
+            results.append(json.load(f))
+    return results, time.perf_counter() - t0
+
+
+def _check_animation_runs(full, resumed, ckpts, metrics_path):
+    """The gates on the two animation_train runs across ranks."""
+    files = {"extra.json", "modules/unet.pt", "modules/audio_encoder.pt",
+             "modules_config.json", "state.pt"}
+    want_written = sorted(f"ckpts/checkpoint-{s}/{n}" for s in (2, 3)
+                          for n in files)
+    with open(metrics_path) as f:
+        logged = [json.loads(line)["step"] for line in f]
+    accum_batches = [2 * s for s in (2, 3)]
+    extra = ckpts["extra"]
+    checks = {
+        "replicas bit-equal after every step": all(
+            s["replicas_equal"] for run in (full, resumed) for r in run
+            for s in r["animation"]["steps"]),
+        "step-1 local gradients differ": all(
+            r["animation"]["local_grads_differ"] for r in full),
+        "3 steps, the ranks' mean losses equal on both ranks": all(
+            r["animation"]["step"] == 3 and r["animation"]["losses"]
+            == full[0]["animation"]["losses"] for r in full)
+        and len(full[0]["animation"]["losses"]) == 3,
+        "only rank 0 wrote, each file once": (
+            sorted(full[0]["animation"]["written"]) == want_written
+            and all(r["animation"]["written"] == [] for r in full[1:])),
+        "no temporary name left": ckpts["tmp_left"] == [],
+        "checkpoint-2 kept (milestone), -3 latest": ckpts["steps"] == [2, 3],
+        "metrics.jsonl: one record a step, rank 0's": logged == [1, 2, 3],
+        "cursors count each rank's batches": (
+            [extra[2]["cursor"], extra[3]["cursor"]] == accum_batches
+            and all(r["animation"]["batches"] == accum_batches[1]
+                    and r["animation"]["loader"] == extra[3]
+                    for r in full)),
+        "resumed from checkpoint-2 to 3": all(
+            r["animation"]["resumed_from"] == 2 and r["animation"]["step"]
+            == 3 for r in resumed),
+        "resumed step-3 loss equal": all(
+            r["animation"]["losses"] == full[0]["animation"]["losses"][2:]
+            for r in resumed),
+        "resumed parameters equal (digest)": all(
+            r["animation"]["steps"][-1]["digest"]
+            == full[0]["animation"]["steps"][-1]["digest"] for r in resumed),
+        "resumed: rank 0 wrote checkpoint-3 alone": (
+            sorted(resumed[0]["animation"]["written"]) == sorted(
+                f"ckpts/checkpoint-3/{n}" for n in files)
+            and all(r["animation"]["written"] == [] for r in resumed[1:])),
+    }
+    return checks
+
+
+def phase_ranks(report):
+    """Phase 11: training across RANKS processes on the card, started with
+    torchrun's environment and joined through maybe_initialize_distributed
+    (gloo with both on cuda:0 where there is one card).  One pair runs the
+    host gathers, the fp32 step against one process, animation_train for 3
+    steps, the fp32 classifier step against one process and avsync_train
+    with evaluate; a fresh pair resumes animation_train from checkpoint-2
+    to 3.  Returns the animation runs' launches, summed over the ranks."""
+    import torch
+    from asva_tpu_torch.training.checkpoint import CheckpointManager
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        log(f"  card memory before the ranks: {free / 2**30:.2f} GiB free "
+            f"of {total / 2**30:.2f} (torch.cuda.mem_get_info)")
+    # the training YAML logs with wandb: never let a rank reach for a
+    # network (the ranks inherit this environment)
+    os.environ["WANDB_MODE"] = "disabled"
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = {}
+        for name in ("uninterrupted", "resumed"):
+            def edit(raw, out_dir=os.path.join(tmp, name)):
+                raw["exp"]["output_dir"] = out_dir
+                raw["train"]["log_steps"] = 1
+                raw["optim"]["checkpointing_steps"] = 2
+                raw["optim"]["checkpointing_milestones"] = 2
+            spec[name] = _job_yaml(ANIMATION_YAML, tmp, name, edit)
+
+        def edit_sync(raw):
+            raw["exp"]["output_dir"] = os.path.join(tmp, "sync")
+        spec["sync"] = _job_yaml(SYNC_YAML, tmp, "sync_ranks", edit_sync)
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump(spec, f)
+
+        full, full_s = _run_ranks("train", tmp)
+        run_dir = os.path.join(tmp, "uninterrupted")
+        mgr = CheckpointManager(os.path.join(run_dir, "ckpts"))
+        ckpts = dict(
+            steps=mgr.existing_steps(),
+            extra={s: mgr.restore_extra(s)["loader"] for s in (2, 3)},
+            tmp_left=[n for _, _, names in os.walk(mgr.directory)
+                      for n in names if n.endswith(".tmp")])
+        os.makedirs(os.path.join(tmp, "resumed", "ckpts"))
+        os.rename(mgr._path(2), os.path.join(tmp, "resumed", "ckpts",
+                                             "checkpoint-2"))
+        resumed, resumed_s = _run_ranks("resume", tmp)
+        checks = _check_animation_runs(
+            full, resumed, ckpts, os.path.join(run_dir, "metrics.jsonl"))
+    seconds = time.perf_counter() - t_phase
+    zero = full[0]
+    fp32 = zero["fp32"]
+    sync32, sync64 = zero["sync_steps"]["float32"], zero["sync_steps"][
+        "float64"]
+    loss_err = abs(fp32["loss_two_ranks"] - fp32["loss_one_process"])
+    checks.update({
+        "host gathers exact": all(r["gathers"]["exact"] for r in full),
+        "fp32: gradients within 1e-4 relative L2 of one process":
+            fp32["grad_rel_l2"] <= 1e-4,
+        "fp32: loss within 1e-5 of one process": loss_err <= 1e-5 * max(
+            1.0, abs(fp32["loss_one_process"])),
+        "fp32: local gradients differ, reduced ones equal": all(
+            r["fp32"]["local_grads_differ"] and r["fp32"]["reduced_grads_equal"]
+            for r in full),
+        "classifier fp32: running statistics within 1e-4 relative L2 of "
+        "one process": sync32["stats_rel_l2"] <= 1e-4,
+        "classifier fp64: gradients and running statistics within 1e-4 "
+        "relative L2 of one process": (sync64["grad_rel_l2"] <= 1e-4
+                                       and sync64["stats_rel_l2"] <= 1e-4),
+        "classifier: replicas equal": all(
+            r["sync_steps"][key]["grads_equal"]
+            and r["sync_steps"][key]["stats_equal"]
+            for r in full for key in ("float32", "float64")),
+        "avsync_train: replicas (and statistics) equal after each step": all(
+            r["sync"]["replicas_equal"] == [True, True] for r in full),
+        "avsync_train: evaluate is the ranks' batch-weighted mean": all(
+            r["sync"]["evaluate_matches"] and r["sync"]["evaluated"] == 1
+            for r in full),
+        "avsync_train: metrics equal on both ranks": all(
+            r["sync"]["metrics"] == zero["sync"]["metrics"] for r in full)
+        and all(math.isfinite(v) for m in zero["sync"]["metrics"]
+                for v in m.values()),
+    })
+    launches = {k: sum(r["animation"]["launches"][k]
+                       for run in (full, resumed) for r in run)
+                for k in zero["animation"]["launches"]}
+    anim = [r["animation"] for r in full]
+    out = dict(
+        device_count=zero["device_count"], backend=zero["backend"],
+        devices=[r["device"] for r in full], seconds=seconds,
+        pair_seconds=[full_s, resumed_s], checks=checks,
+        peak_bytes={name: [r[name]["max_memory_allocated"] for r in full]
+                    for name, _ in RANK_JOBS["train"]},
+        part_seconds={name: [round(r[name]["seconds"], 2) for r in full]
+                      for name, _ in RANK_JOBS["train"]},
+        animation=dict(
+            losses=anim[0]["losses"],
+            seconds_per_step=[a["seconds_per_step"] for a in anim],
+            allreduce_seconds=[a["allreduce_seconds"] for a in anim],
+            allreduce_bytes=anim[0]["allreduce_bytes"],
+            save_seconds=anim[0]["save_seconds"],
+            resumed_losses=resumed[0]["animation"]["losses"],
+            phase10_seconds_per_step=report.get("cli_train", {}).get(
+                "seconds_per_step")),
+        fp32=fp32, classifier=zero["sync_steps"],
+        sync=dict(metrics=zero["sync"]["metrics"],
+                  evaluate=zero["sync"]["evaluate"],
+                  seconds_after_first_step=[
+                      r["sync"]["seconds_after_first_step"] for r in full]),
+        gathers=zero["gathers"], launches=launches)
+    report["ranks"] = out
+    a = out["animation"]
+    log(f"  {RANKS} ranks: torch.cuda.device_count() {out['device_count']}, "
+        f"backend {out['backend']}, devices {out['devices']}; phase "
+        f"{seconds:.1f} s (pairs {full_s:.1f} + {resumed_s:.1f} s); parts "
+        f"(s, rank 0 / 1) {out['part_seconds']}")
+    log(f"  peak memory per rank (GiB): " + "; ".join(
+        f"{k} " + "/".join("-" if b is None else f"{b / 2**30:.2f}"
+                           for b in v) for k, v in out["peak_bytes"].items()))
+    log(f"  animation_train, batch 4 a rank x accumulation 2: seconds per "
+        f"step after the first {a['seconds_per_step']} beside phase 10's "
+        f"one process {a['phase10_seconds_per_step']}; gradient all-reduce "
+        f"a step {a['allreduce_seconds']} s of "
+        f"{[n / 2**30 for n in a['allreduce_bytes']]} GiB; saves "
+        f"{a['save_seconds']} s; losses {a['losses']}, resumed "
+        f"{a['resumed_losses']}")
+    log(f"  fp32 step, batch 1 a rank vs one process on 2: loss "
+        f"{fp32['loss_two_ranks']!r} vs {fp32['loss_one_process']!r}, "
+        f"gradients relative L2 {fp32['grad_rel_l2']:.3e}; classifier fp32, "
+        f"{SYNC_REDUCED_B} items a rank: gradients {sync32['grad_rel_l2']:.3e}"
+        f", running statistics {sync32['stats_rel_l2']:.3e} (one process "
+        f"with the halves swapped: {sync32['grad_rel_l2_order_swapped']:.3e}"
+        f", {sync32['stats_rel_l2_order_swapped']:.3e}); fp64, 1 item a "
+        f"rank: gradients {sync64['grad_rel_l2']:.3e}, running statistics "
+        f"{sync64['stats_rel_l2']:.3e}")
+    log(f"  avsync_train: metrics {out['sync']['metrics']}; evaluate "
+        f"{out['sync']['evaluate']}; seconds after the first step "
+        f"{out['sync']['seconds_after_first_step']}; host gathers "
+        f"{out['gathers']['records']}")
+    log(f"  gates: {checks}; launches {launches}")
+    if not all(checks.values()):
+        fail(f"phase 11: {[k for k, v in checks.items() if not v]}")
+    if not (launches["B1"] > 0 and launches["B3"] > 0 and launches["B4"] > 0
+            and launches["B5"] > 0 and launches["B2"] == 0
+            and launches["B6"] == 0
+            and all(launches[f"KG.{f}"] > 0 for f, *_ in GEMM_FORMS)):
+        fail(f"phase 11 launches: {launches}")
+    return launches
+
+
 def _kernel_kind(name: str) -> str:
     """Coarse family of a device kernel, from its name."""
     if "(anonymous namespace)::gemm_" in name:
@@ -2615,6 +3286,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from asva_tpu_torch.ops import cuda_build  # fails outside the repo
+    if RANK_FLAG in sys.argv[1:]:       # one rank of phase 11
+        at = sys.argv.index(RANK_FLAG)
+        return rank_worker(sys.argv[at + 1], sys.argv[at + 2])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2678,6 +3352,13 @@ def main() -> int:
         with open(os.path.join(out_dir, "profile.json"), "w") as f:
             json.dump(report, f, indent=1)
         return 0
+    if "--ranks-only" in sys.argv[1:]:
+        log(f"phase 11 alone: training across {RANKS} processes on {card}")
+        phase_ranks(report)
+        with open(os.path.join(out_dir, "chip_smoke_ranks.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        print(card)
+        return 0
 
     log("phase 2: kernels vs plain")
     rows = phase_kernels(report)
@@ -2701,6 +3382,8 @@ def main() -> int:
         report, report["pipeline"]["seconds_per_clip"])
     log("phase 10: training and serving from the CLIs")
     cli_counts, serve_counts = phase_cli(report)
+    log(f"phase 11: training across {RANKS} processes")
+    rank_counts = phase_ranks(report)
 
     # launches on each driven path: B1 and B3 run in generation and training
     by_path = {
@@ -2724,6 +3407,8 @@ def main() -> int:
         "T2B": {"tools.mha_phase_bench main": tool_counts["T2B"]}}
     for key in ("B1", "B3", "B4", "B5"):
         by_path[key]["animation_train CLI, 3 + 1 steps"] = cli_counts[key]
+        by_path[key][f"animation_train, {RANKS} ranks, 3 + 1 steps"] = \
+            rank_counts[key]
     for key in ("B2", "B3"):
         by_path[key]["serve warmup, 3 clips"] = serve_counts[key]
     for form in ("q", "out", "ff1", "ff2"):
@@ -2737,6 +3422,8 @@ def main() -> int:
                         "generate_videos, 3 clips per clip":
                             per_clip_counts[key],
                         "animation_train CLI, 3 + 1 steps": cli_counts[key],
+                        f"animation_train, {RANKS} ranks, 3 + 1 steps":
+                            rank_counts[key],
                         "serve warmup, 3 clips": serve_counts[key]}
     kernels = []
     for name, (replaces, tpu, sources) in KERNELS.items():

@@ -513,27 +513,26 @@ from asva_tpu_torch.parallel import multihost
 rank, path = int(sys.argv[1]), sys.argv[2]
 dist.init_process_group("gloo", store=dist.FileStore(path, 2), rank=rank,
                         world_size=2, timeout=datetime.timedelta(seconds=60))
-calls = [lambda: multihost.maybe_initialize_distributed(),
-         lambda: multihost.make_global_batch({"x": torch.ones(2)}, "cpu"),
-         lambda: multihost.process_allgather(np.ones(2)),
-         lambda: multihost.gather_metric_records([0], [[1.0]]),
-         lambda: multihost.globalize_host_local({})]
-for call in calls:
-    try:
-        call()
-        sys.exit(f"rank {rank}: no error")
-    except NotImplementedError as e:
-        assert "ROADMAP A7" in str(e), e
+assert multihost.maybe_initialize_distributed("cpu") is True
+assert (multihost.process_index(), multihost.process_count()) == (rank, 2)
+local = multihost.make_global_batch({"x": torch.full((2,), rank)}, "cpu")
+assert local["x"].tolist() == [rank, rank]
+assert multihost.process_allgather(np.array([rank])).tolist() == [0, 1]
+idx, vals = multihost.gather_metric_records([rank, 2], [[rank], [5 + rank]])
+assert idx.tolist() == [0, 1, 2] and vals.tolist() == [[0], [1], [5]]
+tree = {"a": 1}
+assert multihost.globalize_host_local(tree) is tree
 dist.barrier()
 dist.destroy_process_group()
-print("raised", len(calls))
+print("across", 2)
 """
 
 
-def test_multihost_raises_across_processes(tmp_path):
-    """Under a 2-rank gloo group every one-process form raises
-    NotImplementedError naming ROADMAP A7; so does a launcher
-    environment that names peers."""
+def test_multihost_raises_across_processes(tmp_path, monkeypatch):
+    """Under a 2-rank gloo group made by the caller every form works across
+    processes (each rank's own batch, the gathers over both ranks, each
+    index once); a launcher environment that names peers but cannot reach
+    them raises instead of carrying on as one process."""
     env = dict(os.environ, PYTHONPATH=REPO)
     procs = [subprocess.Popen(
         [sys.executable, "-c", RANK, str(rank), str(tmp_path / "store")],
@@ -541,12 +540,11 @@ def test_multihost_raises_across_processes(tmp_path):
         for rank in range(2)]
     outs = [p.communicate(timeout=120) for p in procs]
     for p, (out, err) in zip(procs, outs):
-        assert p.returncode == 0 and "raised 5" in out, err[-2000:]
+        assert p.returncode == 0 and "across 2" in out, err[-2000:]
 
     from asva_tpu_torch.parallel import multihost
-    os.environ["WORLD_SIZE"] = "2"
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            multihost.maybe_initialize_distributed()
-    finally:
-        del os.environ["WORLD_SIZE"]
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(RuntimeError, match="names peers"):
+        multihost.maybe_initialize_distributed("cpu")
