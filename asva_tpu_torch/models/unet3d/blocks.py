@@ -1,4 +1,6 @@
-"""UNet down / mid / up blocks (port of asva_tpu/models/unet3d/blocks.py)."""
+"""UNet down / mid / up blocks (port of asva_tpu/models/unet3d/blocks.py).
+`frames` (a `parallel.mesh.FrameShard`, or None) is passed down to every
+resnet, transformer and resampler."""
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
@@ -38,17 +40,18 @@ class DownBlock(nn.Module):
                              if add_downsample else None)
 
     def forward(self, x, temb, text_context=None, audio_context=None,
-                audio_token_indices=None, fuse_blocks: bool = False
-                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+                audio_token_indices=None, fuse_blocks: bool = False,
+                frames=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         residuals = []
         for i, resnet in enumerate(self.resnets):
-            x = resnet(x, temb)
+            x = resnet(x, temb, frames)
             if self.attentions is not None:
                 x = self.attentions[i](x, text_context, audio_context,
-                                       audio_token_indices, fuse_blocks)
+                                       audio_token_indices, fuse_blocks,
+                                       frames)
             residuals.append(x)
         if self.downsamplers is not None:
-            x = self.downsamplers[0](x)
+            x = self.downsamplers[0](x, frames)
             residuals.append(x)
         return x, residuals
 
@@ -68,12 +71,13 @@ class MidBlock(nn.Module):
             for _ in range(num_layers)])
 
     def forward(self, x, temb, text_context=None, audio_context=None,
-                audio_token_indices=None, fuse_blocks: bool = False):
-        x = self.resnets[0](x, temb)
+                audio_token_indices=None, fuse_blocks: bool = False,
+                frames=None):
+        x = self.resnets[0](x, temb, frames)
         for attn, resnet in zip(self.attentions, self.resnets[1:]):
             x = attn(x, text_context, audio_context, audio_token_indices,
-                     fuse_blocks)
-            x = resnet(x, temb)
+                     fuse_blocks, frames)
+            x = resnet(x, temb, frames)
         return x
 
 
@@ -105,13 +109,16 @@ class UpBlock(nn.Module):
 
     def forward(self, x, res_states: Sequence[torch.Tensor], temb,
                 text_context=None, audio_context=None,
-                audio_token_indices=None, fuse_blocks: bool = False):
+                audio_token_indices=None, fuse_blocks: bool = False,
+                frames=None):
         # read, never popped: a rematerialised block runs this twice
         for i, resnet in enumerate(self.resnets):
-            x = resnet(torch.cat([x, res_states[-1 - i]], dim=-1), temb)
+            x = resnet(torch.cat([x, res_states[-1 - i]], dim=-1), temb,
+                       frames)
             if self.attentions is not None:
                 x = self.attentions[i](x, text_context, audio_context,
-                                       audio_token_indices, fuse_blocks)
+                                       audio_token_indices, fuse_blocks,
+                                       frames)
         if self.upsamplers is not None:
-            x = self.upsamplers[0](x)
+            x = self.upsamplers[0](x, frames)
         return x

@@ -21,10 +21,26 @@ highest-resolution levels.  asva_tpu's other policies are accepted and
 mapped to the nearer of those two: "dots" to "full"; "l0", "saveconv" and
 "saveconv0" to "highres" (their named-residual saves are not ported).
 Remat changes no output and no gradient.
+
+Frame sharding (generation across a seq axis, `pipelines/animation.py`):
+`forward(..., frames=FrameShard)` runs this rank's frames and carries the
+frame-shard context down to the norms, the temporal mixes and the
+attentions that reach across frames; the audio token indices are this
+rank's rows of the per-frame gather.  The frame exchanges have no
+backward, so a frame-sharded forward refuses to build a graph.  With no
+context the UNet computes what it always did, bit for bit.
+
+FSDP (`parallel/sharding.py`): where parameters are split, each unit (the
+stem: time embedding and conv_in; each down block, the mid block and each
+up block; the head: conv_norm_out and conv_out) runs on its parameters
+gathered for that unit alone, which are freed with the unit's outputs.
+Under autograd every unit is rematerialised, so its backward gathers
+again in the recompute: under FSDP remat covers every level.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -33,6 +49,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.norms import VideoGroupNorm
+from ...parallel import sharding
 from ..embeddings import TimestepEmbedding, sinusoidal_timestep_embedding
 from .blocks import DownBlock, MidBlock, UpBlock
 from .primitives import FFInflatedConv, mask_to_token_indices
@@ -76,6 +93,16 @@ class UNet3DConfig:
                         norm_num_groups=8, attention_head_dim=2)
         defaults.update(kw)
         return cls(**defaults)
+
+
+def _call(module, fsdp: bool, *args):
+    """module(*args); under FSDP on its gathered parameters."""
+    return sharding.call_gathered(module, *args) if fsdp else module(*args)
+
+
+def _unit(fn, remat: bool, *args):
+    """fn(*args), rematerialised in the backward when `remat`."""
+    return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
 
 
 # remat_policy -> the first level (0 = highest resolution) that is NOT
@@ -132,28 +159,38 @@ class AudioUNet3D(nn.Module):
                                             cfg.norm_eps)
         self.conv_out = FFInflatedConv(ch[0], cfg.out_channels)
 
-    def _run_block(self, block, level: int, *args):
+    def _run_block(self, block, level: int, *args, fsdp: bool = False):
         """block(*args), rematerialised in the backward when the config's
-        policy covers this resolution level."""
+        policy covers this resolution level; under FSDP on its gathered
+        parameters, and always rematerialised."""
         keep_from = _REMAT_LEVELS[self.config.remat_policy]
-        if (self.config.remat and torch.is_grad_enabled()
-                and (keep_from is None or level < keep_from)):
-            return checkpoint(block, *args, use_reentrant=False)
-        return block(*args)
+        remat = torch.is_grad_enabled() and (fsdp or (
+            self.config.remat and (keep_from is None or level < keep_from)))
+        return _unit(functools.partial(_call, block, fsdp), remat, *args)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 text_context: Optional[torch.Tensor],
                 audio_context: Optional[torch.Tensor] = None,
                 audio_mask: Optional[torch.Tensor] = None,
-                audio_token_indices=None,
-                fuse_blocks: bool = False) -> torch.Tensor:
+                audio_token_indices=None, fuse_blocks: bool = False,
+                frames=None) -> torch.Tensor:
         """sample (b, f, h, w, c_in) -> eps (b, f, h, w, c_out).
-        fuse_blocks=True is the generation variant (B2 per block)."""
+        fuse_blocks=True is the generation variant (B2 per block).  With
+        `frames` (a FrameShard), sample holds this rank's f frames of the
+        global video, and the audio mask or token indices are global."""
         cfg = self.config
         b, f = sample.shape[:2]
         dtype = self.compute_dtype or self.conv_in.weight.dtype
         if audio_token_indices is None and audio_mask is not None:
             audio_token_indices = mask_to_token_indices(audio_mask)
+        if frames is not None:
+            if torch.is_grad_enabled():
+                raise RuntimeError("a frame-sharded UNet forward runs "
+                                   "without gradients (torch.no_grad())")
+            if audio_token_indices is not None:
+                audio_token_indices = audio_token_indices[
+                    frames.offset:frames.offset + f]
+        fsdp = sharding.sharded(self)
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(b)
@@ -162,30 +199,38 @@ class AudioUNet3D(nn.Module):
             timesteps, cfg.block_out_channels[0],
             flip_sin_to_cos=cfg.flip_sin_to_cos,
             downscale_freq_shift=cfg.freq_shift).to(dtype)
-        emb = self.time_embedding(t_emb)
-        emb = emb[:, None, :].expand(b, f, emb.shape[-1])
-
         if text_context is not None:
             text_context = text_context.to(dtype)
         if audio_context is not None:
             audio_context = audio_context.to(dtype)
-        ctx = (text_context, audio_context, audio_token_indices, fuse_blocks)
-
-        x = self.conv_in(sample.to(dtype))
-        res_stack = [x]
+        ctx = (text_context, audio_context, audio_token_indices, fuse_blocks,
+               frames)
         top = len(cfg.block_out_channels) - 1
+        run = functools.partial(self._run_block, fsdp=fsdp)
+        remat = fsdp and torch.is_grad_enabled()
+
+        def stem(sample, t_emb):
+            return (_call(self.time_embedding, fsdp, t_emb),
+                    _call(self.conv_in, fsdp, sample, frames))
+
+        def head(x):
+            x = F.silu(_call(self.conv_norm_out, fsdp, x, frames))
+            return _call(self.conv_out, fsdp, x, frames)
+
+        emb, x = _unit(stem, remat, sample.to(dtype), t_emb)
+        emb = emb[:, None, :].expand(b, f, emb.shape[-1])
+        res_stack = [x]
         for level, block in enumerate(self.down_blocks):
-            x, residuals = self._run_block(block, level, x, emb, *ctx)
+            x, residuals = run(block, level, x, emb, *ctx)
             res_stack.extend(residuals)
 
-        x = self._run_block(self.mid_block, top, x, emb, *ctx)
+        x = run(self.mid_block, top, x, emb, *ctx)
 
         for i, block in enumerate(self.up_blocks):
             n = len(block.resnets)
             skips = tuple(res_stack[-n:])
             del res_stack[-n:]
             # up level i mirrors down level (top - i) in resolution
-            x = self._run_block(block, top - i, x, skips, emb, *ctx)
+            x = run(block, top - i, x, skips, emb, *ctx)
 
-        x = F.silu(self.conv_norm_out(x))
-        return self.conv_out(x)
+        return _unit(head, remat, x)

@@ -15,6 +15,16 @@ bare attention `_attend(x)` (no LayerNorm, no residual), which dispatches by
 function as the JAX modules do (:347-365, :468-504): shared frame-0 K/V and
 an unmasked 3-D context go to ops/flat_attention.py (kernel B6), a gathered,
 masked or per-frame context to ops/attention.dot_product_attention.
+
+Frame-axis operations take `frames`, a `parallel.mesh.FrameShard`, where
+the video's frames are sharded over the seq ranks of a generation mesh
+(None: every frame is here).  Three operations reach across frames, and
+each exchanges what it needs over the seq group, where asva_tpu's
+partitioner inserts the collectives: the temporal mix's head tap reads
+global frame 0 and its previous-frame tap the previous rank's last frame;
+the first-frame attention's K/V come from global frame 0; temporal
+attention attends over the K/V of every frame.  The exchanges have no
+backward: frame sharding is for generation.
 """
 from __future__ import annotations
 
@@ -29,6 +39,7 @@ from torch.nn import functional as F
 from ...ops import flat_attention, fused
 from ...ops.attention import dot_product_attention
 from ...ops.linear import Linear
+from ...parallel import reduce
 
 
 def conv2d_channels_last(x: torch.Tensor, weight: torch.Tensor,
@@ -83,16 +94,30 @@ class InflatedConv(Conv2d):
         return y.reshape((b, f) + y.shape[1:])
 
 
+def _frame0(x: torch.Tensor, frames) -> torch.Tensor:
+    """Global frame 0 of (b, f, ...) x, (b, 1, ...)."""
+    if frames is None:
+        return x[:, :1]
+    return reduce.broadcast_frame0(x, frames.group)
+
+
 def temporal_mix(y: torch.Tensor, weight: torch.Tensor,
-                 bias: torch.Tensor) -> torch.Tensor:
+                 bias: torch.Tensor, frames=None) -> torch.Tensor:
     """y + Linear([y_0 | y_{f-1} | y_f]) over the frame axis, with the
     previous frame of frame 0 being frame 0 (JAX primitives.py:128-141).
     weight (C, 3C) is the torch Linear(3C, C) of `conv_temp`; its input
-    columns split as [head | prev | curr]."""
+    columns split as [head | prev | curr].  With `frames`, y_0 is seq
+    index 0's first frame and a shard's first previous frame the previous
+    rank's last one, except on seq index 0."""
     c = y.shape[-1]
-    head = F.linear(y[:, :1], weight[:, :c])
+    head = F.linear(_frame0(y, frames), weight[:, :c])
     zp = F.linear(y, weight[:, c:2 * c])
-    prev = torch.cat([zp[:, :1], zp[:, :-1]], dim=1)
+    first = zp[:, :1]
+    if frames is not None:
+        halo = reduce.prev_frame_halo(zp, frames.group)
+        if frames.index > 0:
+            first = halo
+    prev = torch.cat([first, zp[:, :-1]], dim=1)
     mix = head + prev + F.linear(y, weight[:, 2 * c:])
     return y + mix + bias
 
@@ -109,10 +134,10 @@ class FFInflatedConv(InflatedConv):
         nn.init.zeros_(self.conv_temp.weight)
         nn.init.zeros_(self.conv_temp.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frames=None) -> torch.Tensor:
         y = super().forward(x)
         return temporal_mix(y, self.conv_temp.weight.to(y.dtype),
-                            self.conv_temp.bias.to(y.dtype))
+                            self.conv_temp.bias.to(y.dtype), frames)
 
 
 class FFInflatedUpsample2xConv(FFInflatedConv):
@@ -121,9 +146,9 @@ class FFInflatedUpsample2xConv(FFInflatedConv):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, 3, 1, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frames=None) -> torch.Tensor:
         x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
-        return super().forward(x)
+        return super().forward(x, frames)
 
 
 class MultiHeadProjections(nn.Module):
@@ -176,23 +201,24 @@ class FFSpatialAttention(MultiHeadProjections):
     """Spatial self-attention on (b, f, n, c) tokens with K/V from frame 0
     only, shared by every frame's queries.  With `ln` it is the residual
     sub-layer x + Attn(LN(x)) with K/V projected from the normed frame 0;
-    with ln=None it returns the bare attention of x."""
+    with ln=None it returns the bare attention of x.  With `frames`, frame
+    0's x comes from seq index 0 before the projections."""
 
-    def prepare(self, x: torch.Tensor, ln) -> tuple:
-        h0 = ln(x[:, 0])                                 # (b, n, c)
+    def prepare(self, x: torch.Tensor, ln, frames=None) -> tuple:
+        h0 = ln(_frame0(x, frames)[:, 0])                # (b, n, c)
         return self._bundle(ln, self.to_k(h0), self.to_v(h0))
 
-    def forward(self, x: torch.Tensor, ln=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, ln=None, frames=None) -> torch.Tensor:
         if ln is None:
-            return self._attend(x)
+            return self._attend(x, frames)
         b, f, n, c = x.shape
         out = fused.fused_ln_attn(x.reshape(b, f * n, c),
-                                  *self.prepare(x, ln), ln.eps,
+                                  *self.prepare(x, ln, frames), ln.eps,
                                   self.num_heads)
         return out.reshape(b, f, n, c)
 
-    def _attend(self, x: torch.Tensor) -> torch.Tensor:
-        first = x[:, 0]                                  # (b, n, c)
+    def _attend(self, x: torch.Tensor, frames=None) -> torch.Tensor:
+        first = _frame0(x, frames)[:, 0]                 # (b, n, c)
         out = self._attend_flat(self.to_q(x), self.to_k(first),
                                 self.to_v(first), None)
         return self.to_out[0](out)
@@ -285,7 +311,9 @@ class CrossAttention(MultiHeadProjections):
 class TemporalAttention(nn.Module):
     """Self-attention over the frame axis for each spatial location of a
     (b, f, n, c) tensor.  `to_out` is zero-init in the reference.  The
-    scale is computed with fp32 sqrt/divide (JAX primitives.py:617)."""
+    scale is computed with fp32 sqrt/divide (JAX primitives.py:617).  With
+    `frames`, each rank keeps its queries and attends over the K/V of
+    every frame, gathered over the seq group."""
 
     def __init__(self, dim: int, num_heads: int, head_dim: int):
         super().__init__()
@@ -298,14 +326,19 @@ class TemporalAttention(nn.Module):
         nn.init.zeros_(self.to_out[0].weight)
         nn.init.zeros_(self.to_out[0].bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frames=None) -> torch.Tensor:
         b, f, n, _ = x.shape
         h, d = self.num_heads, self.head_dim
 
         def heads(t):                                    # (b, n, h, f, d)
-            return t.reshape(b, f, n, h, d).permute(0, 2, 3, 1, 4)
+            return t.reshape(b, t.shape[1], n, h, d).permute(0, 2, 3, 1, 4)
 
-        q, k, v = heads(self.to_q(x)), heads(self.to_k(x)), heads(self.to_v(x))
+        # q, k, v made in this order: autograd sums x's gradient in it
+        q, k, v = self.to_q(x), self.to_k(x), self.to_v(x)
+        if frames is not None:
+            k = reduce.all_gather_frames(k, frames.group)
+            v = reduce.all_gather_frames(v, frames.group)
+        q, k, v = heads(q), heads(k), heads(v)
         scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))
         logits = (q.float() @ k.float().transpose(-1, -2)) * scale
         w = torch.softmax(logits, dim=-1).to(v.dtype)

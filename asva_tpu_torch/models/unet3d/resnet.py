@@ -1,7 +1,9 @@
 """FF spatio-temporal resnet blocks (port of asva_tpu/models/unet3d/resnet.py).
 
 The GroupNorm here spans ALL frames (VideoGroupNorm): the reference applied
-nn.GroupNorm to the 5-D (b, c, f, h, w) tensor.
+nn.GroupNorm to the 5-D (b, c, f, h, w) tensor.  `frames` (a
+`parallel.mesh.FrameShard`) reaches the norms and the convs' temporal mix
+of a frame-sharded video.
 """
 from __future__ import annotations
 
@@ -33,14 +35,14 @@ class FFResnetBlock(nn.Module):
         self.conv_shortcut = (FFInflatedConv(in_channels, out_channels, 1, 1, 0)
                               if in_channels != out_channels else None)
 
-    def forward(self, x: torch.Tensor,
-                temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None,
+                frames=None) -> torch.Tensor:
+        h = self.conv1(F.silu(self.norm1(x, frames)), frames)
         if temb is not None and self.time_emb_proj is not None:
             h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(F.silu(self.norm2(h, frames)), frames)
         if self.conv_shortcut is not None:
-            x = self.conv_shortcut(x)
+            x = self.conv_shortcut(x, frames)
         return x + h
 
 
@@ -51,8 +53,8 @@ class FFDownsample(nn.Module):
         super().__init__()
         self.conv = FFInflatedConv(channels, channels, 3, 2, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+    def forward(self, x: torch.Tensor, frames=None) -> torch.Tensor:
+        return self.conv(x, frames)
 
 
 class FFUpsample(nn.Module):
@@ -62,5 +64,5 @@ class FFUpsample(nn.Module):
         super().__init__()
         self.conv = FFInflatedUpsample2xConv(channels, channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+    def forward(self, x: torch.Tensor, frames=None) -> torch.Tensor:
+        return self.conv(x, frames)

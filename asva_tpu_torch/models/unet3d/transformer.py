@@ -12,6 +12,10 @@ block:
 Sub-layers 1-3 run as fused residual sub-layers: with fuse_blocks=True all
 three through one B2 call (ops/fused.fused_ln_attn3), else each through B1
 (fused_ln_attn).  The FF runs through B3 (fused_ln_geglu).
+
+`frames` (a `parallel.mesh.FrameShard`) passes a sharded video's frame
+context to the frame-axis sub-layers (primitives.py); the temporal
+position embedding then takes the global indices of this rank's frames.
 """
 from __future__ import annotations
 
@@ -80,8 +84,8 @@ class SpatioAudioTempTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, text_context: Optional[torch.Tensor],
                 audio_context: Optional[torch.Tensor] = None,
-                audio_token_indices=None,
-                fuse_blocks: bool = False) -> torch.Tensor:
+                audio_token_indices=None, fuse_blocks: bool = False,
+                frames=None) -> torch.Tensor:
         f = x.shape[1]
         # the JAX block-fusion conditions (transformer.py:121-125), minus
         # the VMEM gate
@@ -90,24 +94,26 @@ class SpatioAudioTempTransformerBlock(nn.Module):
                 and audio_context is not None and audio_context.dim() == 3
                 and audio_token_indices is not None):
             x = fused.fused_ln_attn3(
-                x, *self.attn1.prepare(x, self.norm1),
+                x, *self.attn1.prepare(x, self.norm1, frames),
                 *self.attn_audio.prepare(audio_context, self.norm_audio,
                                          audio_token_indices),
                 *self.attn2.prepare(text_context, self.norm2),
                 (self.norm1.eps, self.norm_audio.eps, self.norm2.eps),
                 self.num_heads)
         else:
-            x = self.attn1(x, self.norm1)
+            x = self.attn1(x, self.norm1, frames)
             if self.use_audio:
                 x = self.attn_audio(x, audio_context, self.norm_audio,
                                     context_indices=audio_token_indices)
             if text_context is not None:
                 x = self.attn2(x, text_context, self.norm2)
 
+        first = 0 if frames is None else frames.offset
         pos = sinusoidal_timestep_embedding(
-            torch.arange(f, device=x.device, dtype=torch.float32), self.dim)
+            torch.arange(first, first + f, device=x.device,
+                         dtype=torch.float32), self.dim)
         pos = self.pos_embedding_temp(pos.to(x.dtype))[None, :, None, :]
-        x = x + self.attn_temp(self.norm_temp(x + pos))
+        x = x + self.attn_temp(self.norm_temp(x + pos), frames)
         return self.ff(x, self.norm3)
 
 
@@ -134,13 +140,13 @@ class SpatioAudioTempTransformer3D(nn.Module):
 
     def forward(self, x: torch.Tensor, text_context: Optional[torch.Tensor],
                 audio_context: Optional[torch.Tensor] = None,
-                audio_token_indices=None,
-                fuse_blocks: bool = False) -> torch.Tensor:
+                audio_token_indices=None, fuse_blocks: bool = False,
+                frames=None) -> torch.Tensor:
         b, f, hh, ww, _ = x.shape
         h = self.proj_in(self.norm(x))
         h = h.reshape(b, f, hh * ww, h.shape[-1])
         for block in self.transformer_blocks:
             h = block(h, text_context, audio_context, audio_token_indices,
-                      fuse_blocks)
+                      fuse_blocks, frames)
         h = self.proj_out(h.reshape(b, f, hh, ww, h.shape[-1]))
         return h + x

@@ -104,7 +104,16 @@ class GracefulShutdown:
     store the ranks agree through and this process's place among them; by
     default those of the default process group once torch.distributed is
     initialized (a test can drive two ranks as two threads on one
-    HashStore)."""
+    HashStore).
+
+    Each instance agrees under a key prefix of its own,
+    `asva/graceful_shutdown/<generation>/`, the generation counted per rank
+    in the store (the ranks' k-th instances share k), so a second train
+    loop in the same process group never reads a key that an earlier
+    loop's rounds left behind (asva_tpu/observability.py:140-199 starts
+    every instance at round 0 under one prefix).  `restore()` deletes this
+    instance's keys that no peer can still read; the last round's key
+    stays, because a slower peer may still be reading it."""
 
     #: bound on how long a rank waits for its peers' shutdown flags before
     #: raising (instead of hanging forever on a dead peer)
@@ -115,6 +124,7 @@ class GracefulShutdown:
         self.requested = False
         self._round = 0      # store agreement round (requested_global)
         self._group = (store, rank, world_size)
+        self._prefix = None  # this instance's keys, at its first round
         self._prev = {}
         for sig in (signal.SIGTERM, signal.SIGINT):
             try:
@@ -124,7 +134,7 @@ class GracefulShutdown:
 
     def _handler(self, signum, frame):
         self.requested = True
-        self.restore()  # second signal terminates normally
+        self._restore_signals()  # second signal terminates normally
 
     def _peers(self):
         """(store, rank, world size) when more than one process takes part,
@@ -161,9 +171,13 @@ class GracefulShutdown:
         if peers is None:
             return self.requested
         store, rank, world = peers
+        if self._prefix is None:
+            generation = store.add(
+                f"asva/graceful_shutdown/generation/{rank}", 1)
+            self._prefix = f"asva/graceful_shutdown/{generation}"
         n = self._round
         self._round += 1
-        prefix = f"asva/graceful_shutdown/{n}"
+        prefix = f"{self._prefix}/{n}"
         store.set(f"{prefix}/{rank}", "1" if self.requested else "0")
         got = False
         for r in range(world):
@@ -181,11 +195,22 @@ class GracefulShutdown:
         # read all of round n - 1, which every rank set only after reading
         # all of round n - 2
         if n >= 2:
-            store.delete_key(f"asva/graceful_shutdown/{n - 2}/{rank}")
+            store.delete_key(f"{self._prefix}/{n - 2}/{rank}")
         if got:
             self.requested = True
         return got
 
     def restore(self):
+        """Restore the signal handlers and delete this instance's dead
+        keys: those of its rounds before the last (a peer that finished
+        round n has read all of round n - 1)."""
+        self._restore_signals()
+        peers = self._peers()
+        if peers is not None and self._prefix is not None:
+            store, rank, _ = peers
+            for n in range(max(0, self._round - 2), self._round - 1):
+                store.delete_key(f"{self._prefix}/{n}/{rank}")
+
+    def _restore_signals(self):
         for sig, prev in self._prev.items():
             signal.signal(sig, prev)

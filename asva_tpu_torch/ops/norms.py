@@ -11,17 +11,26 @@ exist in the AVSyncD UNet:
 Group statistics are E[x^2] - E[x]^2 in fp32 with the variance clamped at
 0 (asva_tpu/ops/norms.py:78-81), not `F.group_norm`'s formula; the
 normalized value is cast back to the input dtype before the affine.
+
+With the video's frames sharded over ranks (a `parallel.mesh.FrameShard`),
+VideoGroupNorm sums its groups' values and squares over the seq group
+before the divide by the global count, where asva_tpu's partitioner
+inserts that sum; SpatialGroupNorm is per frame and stays local.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..parallel.reduce import all_reduce_sum
+
 
 def _group_normalize(x: torch.Tensor, num_groups: int, eps: float,
-                     lead: int) -> torch.Tensor:
+                     lead: int, frames=None) -> torch.Tensor:
     """Normalize x by group stats pooled over every axis after the first
-    `lead` axes (channel axis last, split into `num_groups` groups)."""
+    `lead` axes (channel axis last, split into `num_groups` groups), and
+    over the ranks of `frames.group` where frames (a FrameShard) is
+    given."""
     c = x.shape[-1]
     if c % num_groups:
         raise ValueError(f"{c} channels not divisible by {num_groups} groups")
@@ -30,8 +39,15 @@ def _group_normalize(x: torch.Tensor, num_groups: int, eps: float,
         k *= s
     xr = x.reshape(k, -1, num_groups, c // num_groups).float()
     n = xr.shape[1] * xr.shape[3]
-    mean = xr.sum(dim=(1, 3), keepdim=True) / n
-    msq = xr.square().sum(dim=(1, 3), keepdim=True) / n
+    if frames is None:
+        mean = xr.sum(dim=(1, 3), keepdim=True) / n
+        msq = xr.square().sum(dim=(1, 3), keepdim=True) / n
+    else:
+        sums = all_reduce_sum(torch.stack(
+            [xr.sum(dim=(1, 3), keepdim=True),
+             xr.square().sum(dim=(1, 3), keepdim=True)]), frames.group)
+        n *= frames.count
+        mean, msq = sums[0] / n, sums[1] / n
     var = torch.clamp(msq - mean.square(), min=0.0)
     y = (xr - mean) * torch.rsqrt(var + eps)
     return y.reshape(x.shape).to(x.dtype)
@@ -51,13 +67,15 @@ class _GroupNormBase(nn.Module):
 
 class VideoGroupNorm(_GroupNormBase):
     """GroupNorm over (frame, height, width, channel-group) of a
-    (b, f, h, w, c) tensor — torch GroupNorm of the (b, c, f, h, w) view."""
+    (b, f, h, w, c) tensor — torch GroupNorm of the (b, c, f, h, w) view;
+    with `frames` (a FrameShard), over the frames of every seq rank."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6):
         super().__init__(num_groups, num_channels, eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self._affine(_group_normalize(x, self.num_groups, self.eps, 1))
+    def forward(self, x: torch.Tensor, frames=None) -> torch.Tensor:
+        return self._affine(_group_normalize(x, self.num_groups, self.eps, 1,
+                                             frames))
 
 
 class SpatialGroupNorm(_GroupNormBase):

@@ -14,6 +14,18 @@
 Randomness comes from an explicit `torch.Generator`, or is handed in as
 `vae_noise` / `latent_noise` (parity tests feed the JAX draws); nothing is
 drawn when both are given.
+
+Across processes (`mesh`, from `parallel.make_gen_mesh`; asva_tpu's
+`_shard_batch`, `_seq_constraint`, `_ctx_constraint` and `_replicate`,
+animation.py:46-108): every rank is handed the global batch, draws the
+noise of the global batch and every frame from the same generator, and
+keeps its rows (the data axis) and its frames (the seq axis), so the
+result does not depend on the mesh.  Weights and the null contexts are
+replicas; the CFG stack is built from each rank's rows.  Frame 0 is
+pinned on seq index 0 only; the UNet exchanges what its frame-axis
+operations need over the seq group.  Each rank decodes its frames, and
+the videos (or latents) are gathered, so every rank returns the global
+result.
 """
 from __future__ import annotations
 
@@ -28,17 +40,23 @@ from ..diffusion.samplers import (ddim_plan, init_state, plan_row_arrays,
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.imagebind_audio import segment_token_indices
 from ..ops.mel import waveform_to_mel
+from ..parallel.reduce import all_gather_frames, all_gather_shards
 
 
 class AnimationPipeline:
     def __init__(self, unet, vae, audio_encoder,
                  schedule: DiffusionSchedule = DiffusionSchedule(),
-                 null_text_encoding: Optional[torch.Tensor] = None):
+                 null_text_encoding: Optional[torch.Tensor] = None,
+                 mesh=None):
         self.unet = unet
         self.vae = vae
         self.audio_encoder = audio_encoder
         self.schedule = schedule
         self.null_text_encoding = null_text_encoding  # (1, 77, 768)
+        if mesh is not None and mesh.size("fsdp") > 1:
+            raise ValueError("AnimationPipeline shards over make_gen_mesh's "
+                             "(data, seq) mesh; its weights are replicas")
+        self.mesh = mesh
         self._null_audio = None
 
     @property
@@ -105,11 +123,14 @@ class AnimationPipeline:
     @torch.no_grad()
     def denoise(self, latents, text_ctx, null_text_ctx, audio_ctx,
                 null_audio_ctx, audio_token_indices, num_steps: int,
-                sampler: str, text_gs: float, audio_gs: float):
+                sampler: str, text_gs: float, audio_gs: float, frames=None):
+        """The sampler over `latents` (this rank's frames of the global
+        video under `frames`, a FrameShard); frame 0 stays pinned."""
         plan = (plms_plan if sampler == "plms" else ddim_plan)(
             self.schedule, num_steps)
         do_text, do_audio = text_gs > 1.0, audio_gs > 1.0
-        sl = slice(1, None)  # frame 0 pinned
+        # frame 0 pinned: only seq index 0 holds it
+        sl = slice(1 if frames is None or frames.index == 0 else 0, None)
         b = latents.shape[0]
 
         def rep(x):
@@ -139,7 +160,7 @@ class AnimationPipeline:
                            device=latents.device)
             eps = self.unet(x, t, text_stack, audio_stack,
                             audio_token_indices=audio_token_indices,
-                            fuse_blocks=True)
+                            fuse_blocks=True, frames=frames)
             if do_text and do_audio:
                 e_u, e_t, e_ta = eps.chunk(3)
                 eps = e_u + text_gs * (e_t - e_u) + audio_gs * (e_ta - e_t)
@@ -174,20 +195,45 @@ class AnimationPipeline:
         (batch 1) and share it over the batch, so a batched call equals
         per-clip calls with the same seed.  vae_noise / latent_noise, when
         given, replace the draws (shapes (1 or b, h/8, w/8, 4) and
-        (1 or b, f-1, h/8, w/8, 4))."""
+        (1 or b, f-1, h/8, w/8, 4)).
+
+        Under `mesh` every rank passes the global batch (and any given
+        noise for it) and returns the global result; b must divide by the
+        mesh's data size and video_length by its seq size."""
         dev = self.device
-        images = images.to(dev)
-        image_latents = self.encode_image(images, generator,
-                                          broadcast=broadcast_rng,
-                                          noise=vae_noise)
-        b, hh, ww, c = image_latents.shape
+        b = images.shape[0]
+        rows, frames = slice(None), None
+        if self.mesh is not None:
+            data, seq = self.mesh.size("data"), self.mesh.size("seq")
+            if b % data or video_length % seq:
+                raise ValueError(
+                    f"batch {b} must divide by the mesh's data size {data} "
+                    f"and video_length {video_length} by its seq size {seq}")
+            i = self.mesh.index("data")
+            rows = slice(i * b // data, (i + 1) * b // data)
+            frames = self.mesh.frame_shard(video_length)
+        _, hh, ww, c = self._latent_shape(images)
+        nb = 1 if broadcast_rng else b
+        # the global draws, in the one-process order; each rank its rows
+        if vae_noise is None:
+            vae_noise = torch.randn((nb, hh, ww, c), generator=generator,
+                                    device=dev)
         if latent_noise is None:
-            latent_noise = torch.randn(
-                (1 if broadcast_rng else b, video_length - 1, hh, ww, c),
-                generator=generator, device=dev)
+            latent_noise = torch.randn((nb, video_length - 1, hh, ww, c),
+                                       generator=generator, device=dev)
+        # a batch-1 draw is shared by every clip
+        vae_noise, latent_noise = (n if n.shape[0] == 1 else n[rows]
+                                   for n in (vae_noise, latent_noise))
+        images, audio_mels = images[rows].to(dev), audio_mels[rows]
+        text_encodings = text_encodings[rows]
+        image_latents = self.encode_image(images, noise=vae_noise)
+        b = image_latents.shape[0]
         noise = latent_noise.to(device=dev, dtype=image_latents.dtype)
         noise = noise.expand((b,) + noise.shape[1:])
         latents = torch.cat([image_latents[:, None], noise], dim=1)
+        if frames is not None:
+            f = video_length // frames.count
+            latents = latents[:, frames.offset:frames.offset + f]
 
         audio_ctx, audio_masks, null_audio_ctx = self.encode_audio(audio_mels)
         if audio_masks.shape[1] != video_length:
@@ -208,10 +254,18 @@ class AnimationPipeline:
                 "empty-string CLIP encoding; reference numerics will differ")
             null_text = torch.zeros_like(text_encodings[:1])
 
-        latents = self.denoise(latents, text_encodings, null_text, audio_ctx,
-                               null_audio_ctx, token_idx, num_inference_steps,
-                               sampler, float(text_guidance_scale),
-                               float(audio_guidance_scale))
-        if not decode:
-            return latents
-        return self.decode_latents(latents)
+        out = self.denoise(latents, text_encodings, null_text, audio_ctx,
+                           null_audio_ctx, token_idx, num_inference_steps,
+                           sampler, float(text_guidance_scale),
+                           float(audio_guidance_scale), frames)
+        if decode:
+            out = self.decode_latents(out)
+        return out if self.mesh is None else self._gather(out, frames)
+
+    def _gather(self, out: torch.Tensor, frames) -> torch.Tensor:
+        """This rank's (rows, frames) block -> the global result."""
+        if frames is not None:
+            out = all_gather_frames(out, frames.group)
+        if self.mesh.size("data") > 1:
+            out = all_gather_shards(out, self.mesh.group("data"))
+        return out

@@ -6,6 +6,8 @@ reference's animation_train), plus `--device`:
         [--max_steps_override N] [--device cpu]
     torchrun --nproc_per_node 2 -m asva_tpu_torch.scripts.animation_train \
         --config_file ... --device cuda     # data parallel over 2 ranks
+    torchrun --nproc_per_node 2 -m asva_tpu_torch.scripts.animation_train \
+        --config_file ... --fsdp 2          # the UNet split over 2 ranks
 
 One YAML config drives the job (the reference's files parse unchanged).
 `main` parses the flags and builds the dataset; `train` holds the loop:
@@ -22,6 +24,12 @@ draws its rows of one global draw, and takes the ranks' mean gradient once
 per optimizer step: the step of one process on the global batch.  Rank 0's
 replica is broadcast after the build and after a restore; rank 0 alone
 writes checkpoints and metrics; the logged loss is the ranks' mean.
+With `--fsdp N` the ranks form a (data, fsdp) mesh: the UNet's parameters
+of at least 2**16 elements (frozen ones too) and their moments are split
+over each fsdp group and gathered one UNet unit at a time
+(parallel/sharding.py); the batch is still sharded over every rank, and
+checkpoints hold the state of one process, so they resume at any fsdp
+size.
 """
 from __future__ import annotations
 
@@ -37,8 +45,8 @@ def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--config_file", required=True)
     p.add_argument("--fsdp", type=int, default=1,
-                   help="must be 1: every rank holds a replica of the "
-                        "model; sharding it (FSDP) is ROADMAP A item 2")
+                   help="split the UNet and its optimizer state over this "
+                        "many ranks (it must divide the process count)")
     p.add_argument("--max_steps_override", type=int, default=None)
     p.add_argument("--profile_dir", default=None,
                    help="capture a torch.profiler trace of steps 10-15 here")
@@ -68,11 +76,12 @@ def micro_generator(seed: int, micro: int, device) -> "torch.Generator":
 
 
 def train(cfg, dataset, device="cuda", max_steps=None, *,
-          profile_dir=None) -> dict:
+          profile_dir=None, fsdp=1) -> dict:
     """Train the AVSyncD UNet of `cfg` (an AnimationJobConfig) on `dataset`
     until `max_steps` optimizer steps (default cfg.optim.max_train_steps),
     through a DataLoader of 8 threads.  Under a process group `device` is
-    resolved to this local rank's (`parallel.make_mesh`).  Returns {"state":
+    resolved to this local rank's (`parallel.make_mesh`), and `fsdp` ranks
+    share each split of the UNet.  Returns {"state":
     TrainState, "losses": [the last micro-batch's loss of each step taken
     here, the ranks' mean],
     "step_times": [time.perf_counter() after each step], "loader": the
@@ -85,6 +94,7 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
     from ..parallel import batch_sharding, make_mesh, replicate
     from ..parallel.multihost import globalize_host_local, make_global_batch
     from ..parallel.reduce import all_reduce_mean_
+    from ..parallel.sharding import fsdp_shardings, is_sharded, shard_module
     from ..runtime import (build_audio_encoder, build_unet, build_vae,
                            load_null_text_encoding)
     from ..training import (AnimationTrainConfig, AnimationTrainer,
@@ -97,10 +107,10 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
     max_steps = max_steps or cfg.optim.max_train_steps
     log = setup_logging(os.path.join(cfg.output_dir, "train.log"))
     log.info("config: %s", cfg)
-    mesh = make_mesh(device)
+    mesh = make_mesh(device, fsdp)
     device = mesh.device
-    log.info("mesh: rank %d of %d on %s %s", mesh.rank, mesh.world, device,
-             mesh.backend)
+    log.info("mesh: rank %d of %d on %s %s, fsdp %d", mesh.rank, mesh.world,
+             device, mesh.backend, fsdp)
     dtype = compute_dtype(device)
 
     # models: the UNet grafted from SD1.5 2D weights when they are present
@@ -118,6 +128,7 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
     audio = build_audio_encoder(cfg.n_segment, device=device, dtype=dtype)
     for module in (unet, vae, audio):
         replicate(mesh, module)
+    shard_module(unet, fsdp_shardings(unet, mesh), mesh)
     null_text = load_null_text_encoding(cfg.null_text_encoding_path, device)
     if null_text is None:
         null_text = torch.zeros((1, 77, 768), device=device)
@@ -147,13 +158,16 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
                             audio.config), n_segment=cfg.n_segment)})
     resumed_extra = resumed_from = None
     if o.resume_from_checkpoint == "latest":
-        restored = ckpt.restore_latest(map_location=device)
+        # onto the host: a rank's device holds only its share of the state
+        restored = ckpt.restore_latest(map_location="cpu")
         if restored is not None:
             resumed_from, saved = restored
             state.load_state_dict(saved)
             del saved
             replicate(mesh, unet)
-            replicate(mesh, optimizer.mu + optimizer.nu)
+            replicate(mesh, [m for p, mu, nu in zip(
+                optimizer.params, optimizer.mu, optimizer.nu)
+                if not is_sharded(p) for m in (mu, nu)])
             resumed_extra = ckpt.restore_extra(resumed_from)
             log.info("resumed from step %d", resumed_from)
 
@@ -169,8 +183,9 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
                          f"({len(loader.dataset)} examples)")
 
     def save(step, force=False):
-        return ckpt.save(step, state.state_dict(), force=force,
-                         modules={"unet": unet.state_dict(),
+        full = state.state_dict()    # every rank gathers its splits
+        return ckpt.save(step, full, force=force,
+                         modules={"unet": full["unet"],
                                   "audio_encoder": audio.state_dict()},
                          extra={"loader": loader.state_dict()})
 
@@ -247,7 +262,8 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
                 # loader's cursor then counts exactly the batches trained on
                 if stop or step >= max_steps:
                     break
-        save(step, force=True)   # a no-op where should_save just saved
+        if not ckpt.should_save(step):   # else saved just now
+            save(step, force=True)
         ckpt.close()
         flush()
         log.info("done at step %d", step)
@@ -262,18 +278,14 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
 
 
 def main(argv=None):
-    p = parser()
-    args = p.parse_args(argv)
-    if args.fsdp != 1:
-        p.error("--fsdp must be 1: every rank holds a replica of the model, "
-                "and sharding it (FSDP) is ROADMAP A item 2")
+    args = parser().parse_args(argv)
     from ..config import AnimationJobConfig
     from ..parallel.multihost import maybe_initialize_distributed
     maybe_initialize_distributed(args.device)
     cfg = AnimationJobConfig.from_yaml(args.config_file)
     return train(cfg, build_dataset(cfg), args.device,
                  args.max_steps_override or cfg.optim.max_train_steps,
-                 profile_dir=args.profile_dir)
+                 profile_dir=args.profile_dir, fsdp=args.fsdp)
 
 
 if __name__ == "__main__":

@@ -16,6 +16,11 @@ handed in as a tensor (`loss_fn(..., draws=...)`), so a test can feed the
 draws of another implementation.  Only the UNet parameters that the
 optimizer holds receive gradients; gradient accumulation is a caller's loop
 of `grad_step` followed by `apply_step`.
+
+Under FSDP (a UNet split by parallel/sharding.py over a (data, fsdp)
+mesh) the gradients of split parameters reach their shards already
+averaged over every rank (the gather's backward); `apply_step` averages
+the replicated ones, and the train state's dict is that of one process.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from torch import nn
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.imagebind_audio import segment_token_indices
 from ..parallel.reduce import all_reduce_mean_
+from ..parallel.sharding import (full_state_dict, is_sharded,
+                                 load_full_state_dict)
 from .optim import AdamW
 
 
@@ -41,18 +48,21 @@ class AnimationTrainConfig:
 
 @dataclasses.dataclass
 class TrainState:
-    """Step count, the UNet (the only trained module) and its optimizer."""
+    """Step count, the UNet (the only trained module) and its optimizer.
+    Its state dict is one process's at any fsdp size: split parameters and
+    moments are gathered (on every rank), and a load takes each shard's
+    block."""
     step: int
     unet: nn.Module
     optimizer: AdamW
 
     def state_dict(self) -> dict:
-        return {"step": self.step, "unet": self.unet.state_dict(),
+        return {"step": self.step, "unet": full_state_dict(self.unet),
                 "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, state: dict) -> None:
         self.step = int(state["step"])
-        self.unet.load_state_dict(state["unet"])
+        load_full_state_dict(self.unet, state["unet"])
         self.optimizer.load_state_dict(state["optimizer"])
 
 
@@ -196,8 +206,10 @@ class AnimationTrainer:
                    mesh=None) -> None:
         """One optimizer step.  Across the ranks of `mesh` the gradients
         are first replaced by their mean, once per step and before the
-        optimizer's global-norm clip, as the global batch's gradient is."""
-        all_reduce_mean_(grads, mesh)
+        optimizer's global-norm clip, as the global batch's gradient is
+        (an FSDP shard's gradient already is that mean)."""
+        all_reduce_mean_([g for g, p in zip(grads, state.optimizer.params)
+                          if not is_sharded(p)], mesh)
         state.optimizer.step(grads)
         state.step += 1
 

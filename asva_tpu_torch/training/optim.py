@@ -15,6 +15,14 @@ is read at the step count before the step (lr 0 on the first warmup step),
 and `mu_dtype` stores the first moment in a lower precision.  AdamW
 hyperparameters mirror the reference configs: lr 1e-4 constant (or linear
 warmup), betas (0.9, 0.999), eps 1e-8, weight decay 1e-2, clip 1.0.
+
+Under FSDP (parallel/sharding.py) it steps on the parameters' shards with
+moments of the same shards; the update is elementwise, so each element
+takes the arithmetic of one process.  The clip's global norm takes each
+split gradient's sum of squares over the full gradient, gathered one
+parameter at a time, so the norm has the bits of the unsharded one.  Its
+state dict holds the full moments (gathered on every rank) and a load
+takes each shard's block, so it reads and writes the state of one process.
 """
 from __future__ import annotations
 
@@ -23,6 +31,8 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 from torch import nn
+
+from ..parallel import sharding
 
 # module-path segments of the torch key space that the reference's
 # "_temp"/"_audio" substrings select (attn_audio, norm_audio, attn_temp,
@@ -119,7 +129,8 @@ class AdamW:
             raise ValueError(f"no gradient for trainable parameters "
                              f"{missing[:8]}")
         grads = [g.float() for g in grads]
-        norm = torch.sqrt(sum((g.square().sum() for g in grads),
+        norm = torch.sqrt(sum((sharding.full_tensor(p, g).square().sum()
+                               for p, g in zip(self.params, grads)),
                               start=torch.zeros((), device=grads[0].device)))
         # optax: g if norm < max_norm else (g / norm) * max_norm
         clip = norm >= self.max_grad_norm
@@ -143,9 +154,12 @@ class AdamW:
         return norm
 
     def state_dict(self) -> dict:
+        """The moments in full (every rank of an fsdp group must call)."""
         return {"count": self.count,
-                "mu": dict(zip(self.names, self.mu)),
-                "nu": dict(zip(self.names, self.nu))}
+                "mu": {n: sharding.full_tensor(p, m) for n, p, m in
+                       zip(self.names, self.params, self.mu)},
+                "nu": {n: sharding.full_tensor(p, v) for n, p, v in
+                       zip(self.names, self.params, self.nu)}}
 
     def load_state_dict(self, state: dict) -> None:
         if set(state["mu"]) != set(self.names):
@@ -153,10 +167,10 @@ class AdamW:
                              "trainable parameters")
         self.count = int(state["count"])
         for i, (name, p) in enumerate(zip(self.names, self.params)):
-            self.mu[i] = state["mu"][name].to(device=p.device,
-                                              dtype=self.mu[i].dtype)
-            self.nu[i] = state["nu"][name].to(device=p.device,
-                                              dtype=self.nu[i].dtype)
+            mu = sharding.block_of(p, state["mu"][name])
+            nu = sharding.block_of(p, state["nu"][name])
+            self.mu[i] = mu.to(device=p.device, dtype=self.mu[i].dtype)
+            self.nu[i] = nu.to(device=p.device, dtype=self.nu[i].dtype)
 
 
 def build_optimizer(

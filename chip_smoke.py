@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # needs one NVIDIA H100 (sm_90a)
     python3 chip_smoke.py --profile  # build + one generation request and one
                                      # training step under torch.profiler
-    python3 chip_smoke.py --ranks-only  # build + phase 11 alone
+    python3 chip_smoke.py --ranks-only  # build + phases 11 and 12 alone
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. build    — nvcc the kernels in asva_tpu_torch/csrc (one process per
@@ -154,8 +154,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                 replaced: 256x256, 12 frames, batch 4, accumulation 2, the
                 default UNet3DConfig with remat "highres", seeded weights,
                 bf16) for 3 steps through the thread DataLoader (8
-                workers); then a run of 2 steps and its resume from
-                checkpoint-2 to 3: the step-3 loss and every trainable
+                workers); then a resume from its checkpoint-2 (kept as a
+                milestone) to 3: the step-3 loss and every trainable
                 parameter must equal the uninterrupted run's bit for bit
                 (cuDNN deterministic), and the loader cursors of
                 checkpoint-2 / -3 and after the resume must be 4 / 6 / 6;
@@ -178,7 +178,7 @@ Phases, in order; any failure exits non-zero and prints no result:
                 joined.  avsync_eval.main on the written clips where libav
                 exists;
   11. ranks   — training across 2 processes: this script again as each
-                rank (--phase11-rank), with torchrun's variables on a free
+                rank (--rank-job), with torchrun's variables on a free
                 localhost port, joined through maybe_initialize_distributed
                 (gloo with both ranks on cuda:0 where the machine has one
                 card, NCCL where each rank has its own); the kernels are
@@ -207,8 +207,30 @@ Phases, in order; any failure exits non-zero and prints no result:
                 from checkpoint-2 to 3: loss and parameter digests equal
                 to the uninterrupted run's.  A rank that fails or hangs
                 kills both and fails the phase with its output's end.
+  12. meshes  — generation and FSDP training across 2 processes (the same
+                rank mechanism).  One process first makes the references:
+                each case's fp32 videos and latents through the kernels and
+                the latents of the plain sub-layers in fp32 and bf16.  One
+                pair runs the pipeline on make_gen_mesh at data 2 (two
+                full-width requests, a clip a rank) and at seq 2 (one clip,
+                6 of its 12 frames a rank), DDIM 5, audio guidance 4.0, in
+                bf16 and fp32: a warm-up call, a timed call (B2 and B3 must
+                be 80 a rank, one process's count), a call with the frame
+                exchanges timed (count, seconds, bytes); the gathered
+                results must be equal on both ranks, the fp32 videos within
+                one uint8 level of one process, the fp32 latents within
+                1e-4 * max(1, max|ref|), the bf16 latents within 1.5x the
+                plain bf16 version's relative RMS from the fp32 plain ones.
+                A pair runs animation_train.train at fsdp 2 for 3 steps at
+                phase 11's sizes, writing checkpoint-2 alone (rank 0): the
+                losses within 1e-6 relative of phase 11's (bit equality
+                printed), each step's gathers and reduce-scatters (count,
+                seconds, bytes) and each step's and save's peak memory.  A
+                fresh pair resumes from that checkpoint-2 at fsdp 2, then at
+                fsdp 1: each step-3 loss within 1e-6 relative of the
+                uninterrupted run's.
 Launch counters are zeroed just before each path run and read just after
-(in each rank for phase 11).
+(in each rank for phases 11 and 12).
 
 Tolerances (max |kernel - plain| over an output):
   fp32  <= 1e-4 * max(1, max|plain|): fp32 products; only the summation
@@ -2081,7 +2103,7 @@ def _step_seconds(marks):
 
 def phase_cli_train(report, media_root, tmp):
     """animation_train at the AVSync15 config's full width: 3 steps, then
-    an interrupted run of 2 and its resume to 3; the resumed step equals the
+    a resume from their checkpoint-2 to 3; the resumed step equals the
     uninterrupted one bit for bit."""
     import shutil
 
@@ -2104,6 +2126,7 @@ def phase_cli_train(report, media_root, tmp):
             d["class_text_encoding_mapping_pt"] = os.path.join(
                 media_root or "", "enc.npz")
             raw["optim"]["checkpointing_steps"] = 1
+            raw["optim"]["checkpointing_milestones"] = 2
         path = _job_yaml(ANIMATION_YAML, tmp, name, edit)
         cfg = AnimationJobConfig.from_yaml(path)
         if media_root:
@@ -2135,12 +2158,13 @@ def phase_cli_train(report, media_root, tmp):
     extra3 = mgr.restore_extra(3)
     full_marks = list(marks)
     del full, state
+    # the resumed run starts from the uninterrupted run's checkpoint-2
+    os.makedirs(os.path.join(tmp, "resumed", "ckpts"))
+    os.rename(mgr._path(2), os.path.join(tmp, "resumed", "ckpts",
+                                         "checkpoint-2"))
+    extra2 = CheckpointManager(os.path.join(
+        tmp, "resumed", "ckpts")).restore_extra(2)
     shutil.rmtree(os.path.join(tmp, "uninterrupted"))
-    torch.cuda.empty_cache()
-
-    _, part, mgr_b = run("resumed", 2)         # interrupted after step 2
-    extra2 = mgr_b.restore_extra(2)
-    del part
     torch.cuda.empty_cache()
     marks.clear()
     reset_counts()
@@ -2526,7 +2550,7 @@ def phase_cli(report):
 # ------------------------------------------------------------ phase 11 ---
 
 RANKS = 2
-RANK_FLAG = "--phase11-rank"
+RANK_FLAG = "--rank-job"
 RANK_COMMAND = [sys.executable, os.path.abspath(__file__)]
 RANKS_TIMEOUT_S = 600
 DEVICE = "cuda"
@@ -2874,10 +2898,12 @@ RANK_JOBS = {"train": (("gathers", rank_gathers), ("fp32", rank_fp32_step),
                        ("animation", rank_animation),
                        ("sync_steps", rank_sync_steps), ("sync", rank_sync)),
              "resume": (("animation", rank_animation),)}
+# the animation run a job's rank_animation part reads from the spec
+RANK_RUNS = {"train": "uninterrupted", "resume": "resumed"}
 
 
 def rank_worker(job, tmp) -> int:
-    """One rank of phase 11: join the group through
+    """One rank of phase 11 or 12: join the group through
     maybe_initialize_distributed, run the job's parts, write
     <tmp>/<job>.<rank>.json."""
     import torch
@@ -2891,7 +2917,7 @@ def rank_worker(job, tmp) -> int:
     mesh = make_mesh(DEVICE)
     with open(os.path.join(tmp, "spec.json")) as f:
         spec = json.load(f)
-    spec["run"] = {"train": "uninterrupted", "resume": "resumed"}[job]
+    spec["run"] = RANK_RUNS.get(job)
     res = dict(rank=mesh.rank, world=mesh.world, device=mesh.device,
                backend=mesh.backend, device_count=torch.cuda.device_count())
     for name, part in RANK_JOBS[job]:
@@ -2909,7 +2935,7 @@ def rank_worker(job, tmp) -> int:
     return 0
 
 
-def _run_ranks(job, tmp):
+def _run_ranks(job, tmp, phase=11):
     """Start RANKS rank processes of `job` on a free localhost port and wait
     for both; one that fails or outlives RANKS_TIMEOUT_S kills them all and
     fails the phase with the end of its output.  Returns (the ranks'
@@ -2939,7 +2965,7 @@ def _run_ranks(job, tmp):
                 r = bad[0] if bad else codes.index(None)
                 with open(logs[r]) as f:
                     tail = f.read()[-4000:]
-                fail(f"phase 11 {job}: rank {r} "
+                fail(f"phase {phase} {job}: rank {r} "
                      + (f"exited {codes[r]}" if bad else
                         f"still running after {RANKS_TIMEOUT_S} s")
                      + f":\n{tail}")
@@ -2955,9 +2981,8 @@ def _run_ranks(job, tmp):
         os.makedirs(out_dir, exist_ok=True)
         for path in logs:
             if os.path.isfile(path):
-                shutil.copy(path, os.path.join(out_dir,
-                                               "phase11_" + os.path.basename(
-                                                   path)))
+                shutil.copy(path, os.path.join(
+                    out_dir, f"phase{phase}_" + os.path.basename(path)))
     results = []
     for r in range(RANKS):
         with open(os.path.join(tmp, f"{job}.{r}.json")) as f:
@@ -3163,6 +3188,466 @@ def phase_ranks(report):
     return launches
 
 
+# ------------------------------------------------------------ phase 12 ---
+
+# the generation meshes of phase 12: (seq size, clips); data = RANKS // seq
+GEN_CASES = {"data": (1, 2), "seq": (2, 1)}
+GEN_KW = dict(video_length=F, num_inference_steps=5, sampler="ddim",
+              audio_guidance_scale=4.0, text_guidance_scale=1.0)
+
+
+def _gen_inputs(n):
+    """n full-width requests made as phase 4 makes them (a 256x256 image,
+    2 s of 16 kHz audio, a (77, 768) text encoding), and the seeded
+    stand-in null text encoding, on the current card."""
+    import torch
+    g = _gen(120)
+    images = torch.rand((n, 256, 256, 3), generator=g, device="cuda")
+    waves = torch.randn((n, 1, 32000), generator=g, device="cuda") * 0.1
+    text = torch.randn((n, TEXT_TOKENS, 768), generator=g, device="cuda")
+    null = torch.randn((1, TEXT_TOKENS, 768), device="cuda",
+                       generator=_gen(100))
+    return images, waves, text, null
+
+
+def _gen_pipeline(dtype, null):
+    """Phase 4's seeded full-width pipeline."""
+    from asva_tpu_torch.runtime import load_animation_pipeline
+    return load_animation_pipeline(device="cuda", dtype=dtype, seed=0,
+                                   randomize_all=True,
+                                   null_text_encoding=null)
+
+
+def _generate(pipe, n, decode):
+    images, waves, text, _ = _gen_inputs(n)
+    mels = pipe.encode_audio_waveform(list(waves))
+    return pipe(images, mels, text, generator=_gen(130), decode=decode,
+                **GEN_KW)
+
+
+@contextlib.contextmanager
+def _timed_exchanges(stats):
+    """Count, time (the card synchronised on both sides) and size the
+    UNet's frame exchanges: {name: [calls, seconds, bytes]}, the bytes of
+    the tensor each returns (all_reduce_sum: of its input)."""
+    from asva_tpu_torch.ops import norms
+    from asva_tpu_torch.parallel import reduce
+    saved = {"broadcast_frame0": (reduce, reduce.broadcast_frame0),
+             "prev_frame_halo": (reduce, reduce.prev_frame_halo),
+             "all_gather_frames": (reduce, reduce.all_gather_frames),
+             "all_reduce_sum": (norms, norms.all_reduce_sum)}
+
+    def timed(name, fn):
+        def run(x, group):
+            _sync()
+            t0 = time.perf_counter()
+            y = fn(x, group)
+            _sync()
+            moved = x if name == "all_reduce_sum" else y
+            row = stats.setdefault(name, [0, 0.0, 0])
+            row[0] += 1
+            row[1] += time.perf_counter() - t0
+            row[2] += moved.numel() * moved.element_size()
+            return y
+        return run
+    for name, (mod, fn) in saved.items():
+        setattr(mod, name, timed(name, fn))
+    try:
+        yield stats
+    finally:
+        for name, (mod, fn) in saved.items():
+            setattr(mod, name, fn)
+
+
+def rank_generation(mesh, spec, tmp):
+    """Phase 12 (a) and (b): each generation mesh and dtype: a warm-up
+    call, a timed call (its B2/B3 launches), and a call returning the
+    latents with the frame exchanges timed; rank 0 writes the gathered
+    videos and latents."""
+    import torch
+    from asva_tpu_torch.parallel import make_gen_mesh, multihost
+    from asva_tpu_torch.pipelines.animation import AnimationPipeline
+    meshes = {case: make_gen_mesh(DEVICE, seq=seq)
+              for case, (seq, _) in GEN_CASES.items()}
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        base = _gen_pipeline(dtype, _gen_inputs(1)[3])
+        for case, (seq, n) in GEN_CASES.items():
+            gmesh = meshes[case]
+            name = f"{case}_{str(dtype).split('.')[-1]}"
+            pipe = AnimationPipeline(base.unet, base.vae, base.audio_encoder,
+                                     base.schedule, base.null_text_encoding,
+                                     mesh=gmesh)
+            _generate(pipe, n, True)
+            _sync()
+            multihost.barrier()
+            reset_counts()
+            t0 = time.perf_counter()
+            videos = _generate(pipe, n, True)
+            _sync()
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            stats = {}
+            with _timed_exchanges(stats):
+                _sync()
+                t0 = time.perf_counter()
+                latents = _generate(pipe, n, False)
+                _sync()
+                timed_s = time.perf_counter() - t0
+            if mesh.rank == 0:
+                torch.save({"videos": videos.float().cpu(),
+                            "latents": latents.float().cpu()},
+                           os.path.join(tmp, f"gen_{name}.pt"))
+            out[name] = dict(
+                data=gmesh.size("data"), seq=gmesh.size("seq"),
+                coords=list(gmesh.coords), seconds_per_request=seconds,
+                seconds_with_exchanges_timed=timed_s,
+                launches={k: counts[k] for k in ("B2", "B3")},
+                launches_all=counts, exchanges=stats,
+                ranks_equal=_same(_gathered_digests([videos, latents])),
+                shape=list(videos.shape))
+            del pipe, videos, latents
+            torch.cuda.empty_cache()
+        del base
+    return out
+
+
+def _fsdp_run(mesh, name, spec, fsdp):
+    """animation_train.train at `fsdp` on the run `name`'s YAML for 3
+    steps (a resumed run: to 3), writing checkpoint-2 alone: each step's
+    gathers, reduce-scatters and the clip's gathers (count, seconds with
+    the card synchronised, bytes), the peak memory of each step and of
+    each save, the files this rank wrote and its launches."""
+    import torch
+    from asva_tpu_torch.config import AnimationJobConfig
+    from asva_tpu_torch.parallel import sharding
+    from asva_tpu_torch.scripts import animation_train
+    from asva_tpu_torch.training import animation_trainer, checkpoint
+    cfg = AnimationJobConfig.from_yaml(spec[name])
+    label, comms, peaks, written = ["build"], {}, {}, []
+    trainer_cls = animation_trainer.AnimationTrainer
+    state_cls = animation_trainer.TrainState
+    mgr = checkpoint.CheckpointManager
+    orig = dict(gather=sharding.gather, full_gather=sharding.full_tensor,
+                reduce_scatter=sharding.reduce_scatter_mean,
+                grad_step=trainer_cls.grad_step,
+                apply_step=trainer_cls.apply_step,
+                state_dict=state_cls.state_dict, save=mgr.save,
+                write=checkpoint._write_atomic)
+
+    def timed(kind):
+        def run(*args):
+            if kind == "full_gather" and not sharding.is_sharded(args[0]):
+                return orig[kind](*args)     # a replica: no collective
+            _sync()
+            t0 = time.perf_counter()
+            y = orig[kind](*args)
+            _sync()
+            moved = args[0] if kind == "reduce_scatter" else y
+            row = comms.setdefault(label[0], {}).setdefault(kind,
+                                                            [0, 0.0, 0])
+            row[0] += 1
+            row[1] += time.perf_counter() - t0
+            row[2] += moved.numel() * moved.element_size()
+            return y
+        return run
+
+    def relabel(new):
+        """Close the peak of the window `label` names, open `new`'s."""
+        _sync()
+        peaks[label[0]] = max(peaks.get(label[0], 0),
+                              torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        label[0] = new
+
+    def grad_step(self, state, *a, **kw):
+        if label[0] != f"step {state.step + 1}":
+            relabel(f"step {state.step + 1}")
+        return orig["grad_step"](self, state, *a, **kw)
+
+    def apply_step(self, state, grads, mesh=None):
+        orig["apply_step"](self, state, grads, mesh)
+        relabel(label[0])
+
+    # phase 12 writes checkpoint-2 alone: the loop's final forced save at
+    # step 3 neither gathers the state nor writes it
+    def state_dict(self):
+        if self.step == 3:
+            return {"unet": None}
+        relabel(f"save {self.step}")
+        full = orig["state_dict"](self)
+        relabel(label[0])
+        return full
+
+    def save(self, step, *a, force=False, **kw):
+        if force and step == 3:
+            return False
+        return orig["save"](self, step, *a, force=force, **kw)
+
+    def write(path, fn):
+        written.append(os.path.relpath(path, cfg.output_dir))
+        orig["write"](path, fn)
+    sharding.gather = timed("gather")
+    sharding.full_tensor = timed("full_gather")
+    sharding.reduce_scatter_mean = timed("reduce_scatter")
+    trainer_cls.grad_step, trainer_cls.apply_step = grad_step, apply_step
+    state_cls.state_dict, mgr.save = state_dict, save
+    checkpoint._write_atomic = write
+    try:
+        reset_counts()
+        res = animation_train.train(
+            cfg, ChipClips(RANK_ITEMS, cfg.dataset, cfg.seed), DEVICE, 3,
+            fsdp=fsdp)
+        counts = read_counts()
+        relabel("end")
+    finally:
+        sharding.gather, sharding.full_tensor = (orig["gather"],
+                                                 orig["full_gather"])
+        sharding.reduce_scatter_mean = orig["reduce_scatter"]
+        trainer_cls.grad_step = orig["grad_step"]
+        trainer_cls.apply_step = orig["apply_step"]
+        state_cls.state_dict, mgr.save = orig["state_dict"], orig["save"]
+        checkpoint._write_atomic = orig["write"]
+    state = res["state"]
+    split = sum(sharding.is_sharded(p) for p in state.unet.parameters())
+    out = dict(run=name, fsdp=fsdp, losses=res["losses"], step=state.step,
+               resumed_from=res["resumed_from"], loader=res["loader"],
+               split_parameters=split,
+               parameters=sum(1 for _ in state.unet.parameters()),
+               seconds_per_step=[round(b - a, 3) for a, b in zip(
+                   res["step_times"], res["step_times"][1:])],
+               comms=comms, peaks=peaks, peak=max(peaks.values()),
+               written=written, launches=counts)
+    del res, state
+    torch.cuda.empty_cache()
+    return out
+
+
+RANK_JOBS.update({
+    "gen": (("generation", rank_generation),),
+    "fsdp": (("fsdp", lambda mesh, spec, tmp: _fsdp_run(mesh, "fsdp", spec,
+                                                        2)),),
+    "fsdp_resume": tuple(
+        (f"resume{n}", lambda mesh, spec, tmp, n=n: _fsdp_run(
+            mesh, f"resume{n}", spec, n)) for n in (2, 1))})
+
+
+def _one_process_references():
+    """Each phase-12 case's one-process results on the same inputs and
+    noise: fp32 videos and latents through the kernels, and the latents of
+    the plain sub-layers in fp32 and bf16 (phase 4's bf16 gate)."""
+    import torch
+    refs = {}
+    for case, (_, n) in GEN_CASES.items():
+        null = _gen_inputs(n)[3]
+        pipe = _gen_pipeline(torch.float32, null)
+        ref = dict(videos=_generate(pipe, n, True).cpu(),
+                   latents=_generate(pipe, n, False).float().cpu())
+        with plain_sublayers():
+            ref["plain32"] = _generate(pipe, n, False).float().cpu()
+            del pipe
+            torch.cuda.empty_cache()
+            pipe = _gen_pipeline(torch.bfloat16, null)
+            ref["plain16"] = _generate(pipe, n, False).float().cpu()
+        del pipe
+        torch.cuda.empty_cache()
+        refs[case] = ref
+    return refs
+
+
+def _gen_checks(tmp, refs, results):
+    """phase 12's generation gates: fp32 videos within one uint8 level of
+    one process, fp32 latents within 1e-4 * max(1, max|ref|), bf16 latents
+    within 1.5x the plain bf16 version's relative RMS from the fp32 plain
+    ones; the ranks' results equal; B2 = B3 = 80 per rank (16 blocks x 5
+    steps, one process's count)."""
+    import torch
+    checks, numbers = {}, {}
+    for case in GEN_CASES:
+        ref = refs[case]
+        got32 = torch.load(os.path.join(tmp, f"gen_{case}_float32.pt"))
+        got16 = torch.load(os.path.join(tmp, f"gen_{case}_bfloat16.pt"))
+
+        def u8(v):
+            return (v * 255).to(torch.uint8).int()
+
+        def rel_rms(a):
+            return float((a - ref["plain32"]).norm() / ref["plain32"].norm())
+        levels = int((u8(got32["videos"]) - u8(ref["videos"])).abs().max())
+        lat_err = float((got32["latents"] - ref["latents"]).abs().max())
+        lat_tol = 1e-4 * max(1.0, float(ref["latents"].abs().max()))
+        rms16, rms_plain = rel_rms(got16["latents"]), rel_rms(ref["plain16"])
+        numbers[case] = dict(fp32_uint8_levels=levels,
+                             fp32_latents_max_abs=lat_err,
+                             fp32_latents_tol=lat_tol,
+                             bf16_rel_rms=rms16, plain_bf16_rel_rms=rms_plain)
+        checks[f"{case}: fp32 videos within one uint8 level"] = levels <= 1
+        checks[f"{case}: fp32 latents within 1e-4 * max(1, |ref|)"] = \
+            lat_err <= lat_tol
+        checks[f"{case}: bf16 within 1.5x the plain bf16's distance"] = \
+            rms16 <= 1.5 * rms_plain
+        for dname in ("bfloat16", "float32"):
+            rows = [r["generation"][f"{case}_{dname}"] for r in results]
+            checks[f"{case} {dname}: ranks equal, global shape"] = all(
+                r["ranks_equal"] and r["shape"][:2]
+                == [GEN_CASES[case][1], F] for r in rows)
+            checks[f"{case} {dname}: B2 = B3 = 80 a rank"] = all(
+                r["launches"] == {"B2": 80, "B3": 80} for r in rows)
+    return checks, numbers
+
+
+def _fsdp_checks(full, resumed, phase11_losses):
+    """phase 12's FSDP gates: losses within 1e-6 relative of phase 11's
+    data-parallel run; both resumes' step-3 loss within 1e-6 relative of
+    the uninterrupted run's; checkpoint-2 written by rank 0 alone; the
+    resumes start at 2 and reach 3."""
+    zero = full[0]["fsdp"]
+
+    def close(a, b):
+        return abs(a - b) <= 1e-6 * abs(b)
+    files = {"extra.json", "modules/unet.pt", "modules/audio_encoder.pt",
+             "modules_config.json", "state.pt"}
+    checks = {
+        "fsdp 2: 3 steps, losses equal on both ranks": all(
+            r["fsdp"]["step"] == 3 and r["fsdp"]["losses"] == zero["losses"]
+            for r in full) and len(zero["losses"]) == 3,
+        "fsdp 2: parameters split": zero["split_parameters"] > 0,
+        "fsdp 2: losses within 1e-6 relative of phase 11's": (
+            phase11_losses is not None and len(phase11_losses) == 3
+            and all(close(a, b) for a, b in zip(zero["losses"],
+                                                phase11_losses))),
+        "fsdp 2: checkpoint-2 by rank 0 alone": (
+            sorted(zero["written"]) == sorted(
+                f"ckpts/checkpoint-2/{n}" for n in files)
+            and all(r["fsdp"]["written"] == [] for r in full[1:])),
+    }
+    for n in (2, 1):
+        runs = [r[f"resume{n}"] for r in resumed]
+        checks[f"resume at fsdp {n}: from 2 to 3"] = all(
+            r["resumed_from"] == 2 and r["step"] == 3 and r["fsdp"] == n
+            and r["written"] == [] for r in runs)
+        checks[f"resume at fsdp {n}: step-3 loss within 1e-6 relative"] = \
+            all(len(r["losses"]) == 1 and close(r["losses"][0],
+                                                zero["losses"][2])
+                for r in runs)
+    return checks
+
+
+def phase_parallel_gen_fsdp(report):
+    """Phase 12: generation across RANKS processes at data 2 and at seq 2
+    against one process on the same inputs and noise, then
+    animation_train at fsdp 2 for 3 steps against phase 11's data-parallel
+    losses, and a fresh pair's resumes from its checkpoint-2 at fsdp 2 and
+    at fsdp 1.  Returns the paths' launches, summed over the ranks."""
+    import torch
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    refs = _one_process_references()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_phase
+    os.environ["WANDB_MODE"] = "disabled"
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = {}
+        for name in ("fsdp", "resume2", "resume1"):
+            def edit(raw, out_dir=os.path.join(tmp, name)):
+                raw["exp"]["output_dir"] = out_dir
+                raw["train"]["log_steps"] = 1
+                raw["optim"]["checkpointing_steps"] = 2
+                raw["optim"]["checkpointing_milestones"] = 2
+            spec[name] = _job_yaml(ANIMATION_YAML, tmp, name, edit)
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        gen, gen_s = _run_ranks("gen", tmp, 12)
+        checks, numbers = _gen_checks(tmp, refs, gen)
+        full, full_s = _run_ranks("fsdp", tmp, 12)
+        for n in (2, 1):
+            ckpts = os.path.join(tmp, f"resume{n}", "ckpts")
+            os.makedirs(ckpts)
+            os.symlink(os.path.join(tmp, "fsdp", "ckpts", "checkpoint-2"),
+                       os.path.join(ckpts, "checkpoint-2"))
+        resumed, resumed_s = _run_ranks("fsdp_resume", tmp, 12)
+    phase11 = report.get("ranks", {}).get("animation", {}).get("losses")
+    checks.update(_fsdp_checks(full, resumed, phase11))
+    seconds = time.perf_counter() - t_phase
+    zero = full[0]["fsdp"]
+    gen_rows = {f"{c}_{d}": [r["generation"][f"{c}_{d}"] for r in gen]
+                for c in GEN_CASES for d in ("bfloat16", "float32")}
+    launches = {
+        "generation": {k: sum(r["launches_all"][k] for rows in
+                              gen_rows.values() for r in rows)
+                       for k in gen_rows["data_bfloat16"][0][
+                           "launches_all"]},
+        "fsdp": {k: sum(r["fsdp"]["launches"][k] for r in full)
+                 + sum(r[f"resume{n}"]["launches"][k] for r in resumed
+                       for n in (2, 1))
+                 for k in zero["launches"]}}
+    out = dict(
+        seconds=seconds, reference_seconds=ref_s,
+        pair_seconds=dict(gen=gen_s, fsdp=full_s, resume=resumed_s),
+        checks=checks, generation=numbers,
+        generation_ranks={k: [{f: r[f] for f in (
+            "coords", "seconds_per_request", "seconds_with_exchanges_timed",
+            "launches", "exchanges")} for r in rows]
+            for k, rows in gen_rows.items()},
+        phase4_seconds_per_clip=report.get("pipeline", {}).get(
+            "seconds_per_clip"),
+        fsdp=dict(losses=zero["losses"], phase11_losses=phase11,
+                  bit_equal_to_phase11=zero["losses"] == phase11,
+                  resumed={n: [r[f"resume{n}"]["losses"] for r in resumed]
+                           for n in (2, 1)},
+                  resume2_bit_equal=all(
+                      r["resume2"]["losses"] == zero["losses"][2:]
+                      for r in resumed),
+                  split_parameters=[zero["split_parameters"],
+                                    zero["parameters"]],
+                  seconds_per_step=[r["fsdp"]["seconds_per_step"]
+                                    for r in full],
+                  peaks={r["rank"]: r["fsdp"]["peaks"] for r in full},
+                  peak_bytes=[r["fsdp"]["peak"] for r in full],
+                  resumed_peak_bytes={n: [r[f"resume{n}"]["peak"]
+                                          for r in resumed]
+                                      for n in (2, 1)},
+                  phase11_peak_bytes=report.get("ranks", {}).get(
+                      "peak_bytes", {}).get("animation"),
+                  comms=zero["comms"]),
+        launches=launches)
+    report["parallel_gen_fsdp"] = out
+    log(f"  phase {seconds:.1f} s (one-process references {ref_s:.1f} s, "
+        f"pairs {gen_s:.1f} + {full_s:.1f} + {resumed_s:.1f} s)")
+    for k, rows in out["generation_ranks"].items():
+        log(f"  {k}: per rank {[(r['coords'], round(r['seconds_per_request'], 3), r['launches']) for r in rows]}"
+            f"; frame exchanges (calls, s, bytes) on rank 0 "
+            f"{ {n: [v[0], round(v[1], 4), v[2]] for n, v in rows[0]['exchanges'].items()} }"
+            f" in a request of {round(rows[0]['seconds_with_exchanges_timed'], 3)} s")
+    log(f"  generation gates' numbers {numbers}; phase 4's seconds per "
+        f"clip {out['phase4_seconds_per_clip']}")
+    f12 = out["fsdp"]
+    log(f"  fsdp 2: losses {f12['losses']!r} beside phase 11's "
+        f"{f12['phase11_losses']!r} (bit-equal {f12['bit_equal_to_phase11']});"
+        f" resumed step-3 losses {f12['resumed']} (fsdp 2 bit-equal "
+        f"{f12['resume2_bit_equal']}); {f12['split_parameters'][0]} of "
+        f"{f12['split_parameters'][1]} parameters split")
+    log(f"  fsdp 2: seconds per step after the first "
+        f"{f12['seconds_per_step']}; peak per rank (GiB) "
+        f"{[b / 2**30 for b in f12['peak_bytes']]} beside phase 11's "
+        f"{[b / 2**30 for b in (f12['phase11_peak_bytes'] or [])]}; by step"
+        f" and save {f12['peaks']}; resumed runs' peaks (GiB) "
+        f"{ {n: [b / 2**30 for b in v] for n, v in f12['resumed_peak_bytes'].items()} }")
+    for step, kinds in f12["comms"].items():
+        log(f"    rank 0 {step}: " + "; ".join(
+            f"{kind} x{v[0]} {v[1]:.3f} s {v[2] / 2**30:.3f} GiB"
+            for kind, v in kinds.items()))
+    log(f"  gates: {checks}; launches {launches}")
+    if not all(checks.values()):
+        fail(f"phase 12: {[k for k, v in checks.items() if not v]}")
+    gl, fl = launches["generation"], launches["fsdp"]
+    if not (gl["B2"] > 0 and gl["B3"] > 0 and gl["B1"] == 0
+            and fl["B1"] > 0 and fl["B3"] > 0 and fl["B4"] > 0
+            and fl["B5"] > 0 and fl["B2"] == 0 and fl["B6"] == 0):
+        fail(f"phase 12 launches: {launches}")
+    return launches
+
+
 def _kernel_kind(name: str) -> str:
     """Coarse family of a device kernel, from its name."""
     if "(anonymous namespace)::gemm_" in name:
@@ -3286,7 +3771,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from asva_tpu_torch.ops import cuda_build  # fails outside the repo
-    if RANK_FLAG in sys.argv[1:]:       # one rank of phase 11
+    if RANK_FLAG in sys.argv[1:]:       # one rank of phase 11 or 12
         at = sys.argv.index(RANK_FLAG)
         return rank_worker(sys.argv[at + 1], sys.argv[at + 2])
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3353,8 +3838,11 @@ def main() -> int:
             json.dump(report, f, indent=1)
         return 0
     if "--ranks-only" in sys.argv[1:]:
-        log(f"phase 11 alone: training across {RANKS} processes on {card}")
+        log(f"phases 11-12 alone: training and generation across {RANKS} "
+            f"processes on {card}")
         phase_ranks(report)
+        log(f"phase 12: generation at data 2 and seq 2, FSDP at fsdp 2")
+        phase_parallel_gen_fsdp(report)
         with open(os.path.join(out_dir, "chip_smoke_ranks.json"), "w") as f:
             json.dump(report, f, indent=1)
         print(card)
@@ -3384,6 +3872,8 @@ def main() -> int:
     cli_counts, serve_counts = phase_cli(report)
     log(f"phase 11: training across {RANKS} processes")
     rank_counts = phase_ranks(report)
+    log("phase 12: generation at data 2 and seq 2, FSDP at fsdp 2")
+    p12 = phase_parallel_gen_fsdp(report)
 
     # launches on each driven path: B1 and B3 run in generation and training
     by_path = {
@@ -3411,6 +3901,11 @@ def main() -> int:
             rank_counts[key]
     for key in ("B2", "B3"):
         by_path[key]["serve warmup, 3 clips"] = serve_counts[key]
+        by_path[key][f"generation, {RANKS} ranks at data 2 and seq 2"] = \
+            p12["generation"][key]
+    for key in ("B1", "B3", "B4", "B5"):
+        by_path[key][f"animation_train fsdp 2, {RANKS} ranks, 3 + 2 x 1 "
+                     "steps"] = p12["fsdp"][key]
     for form in ("q", "out", "ff1", "ff2"):
         key = f"KG.{form}"
         by_path[key] = {"unet fuse_blocks=False": b1_counts[key],
@@ -3424,7 +3919,11 @@ def main() -> int:
                         "animation_train CLI, 3 + 1 steps": cli_counts[key],
                         f"animation_train, {RANKS} ranks, 3 + 1 steps":
                             rank_counts[key],
-                        "serve warmup, 3 clips": serve_counts[key]}
+                        "serve warmup, 3 clips": serve_counts[key],
+                        f"generation, {RANKS} ranks at data 2 and seq 2":
+                            p12["generation"][key],
+                        f"animation_train fsdp 2, {RANKS} ranks, 3 + 2 x 1 "
+                        "steps": p12["fsdp"][key]}
     kernels = []
     for name, (replaces, tpu, sources) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name

@@ -176,7 +176,8 @@ def test_animation_train_cli_resumes_bit_for_bit(clips, tmp_path,
     """3 steps write checkpoint-2 (a milestone) and checkpoint-3 with the
     loader's cursor; a run resumed from checkpoint-2 takes step 3 with the
     same loss and parameters, bit for bit; checkpoint-3's exports load
-    through load_animation_pipeline; --fsdp other than 1 is refused."""
+    through load_animation_pipeline; an --fsdp that does not divide the
+    processes is refused."""
     import shutil
 
     from asva_tpu_torch.scripts import animation_train
@@ -185,7 +186,7 @@ def test_animation_train_cli_resumes_bit_for_bit(clips, tmp_path,
     cfg.write_text(_animation_yaml(clips, tmp_path / "a"))
     argv = ["--config_file", str(cfg), "--max_steps_override", "3",
             "--device", "cpu"]
-    with pytest.raises(SystemExit):
+    with pytest.raises(ValueError, match="fsdp=2 does not divide the 1"):
         animation_train.main(argv + ["--fsdp", "2"])
     full = animation_train.main(argv)
     mgr = CheckpointManager(str(tmp_path / "a" / "ckpts"))

@@ -87,6 +87,7 @@ def test_port_imports_no_jax():
              "scripts/avsync_metric.py", "data/loader.py",
              "parallel/__init__.py", "parallel/multihost.py",
              "parallel/mesh.py", "parallel/reduce.py",
+             "parallel/sharding.py",
              "scripts/animation_serve.py", "scripts/animation_train.py",
              "scripts/avsync_train.py", "scripts/avsync_eval.py")} <= seen
     # the media layer builds the port's own copy of its C++ source

@@ -470,7 +470,7 @@ def test_maybe_initialize_distributed_forms(ranks, monkeypatch):
     monkeypatch.setenv("WORLD_SIZE", "1")
     assert multihost.maybe_initialize_distributed("cpu") is False
     assert make_mesh("cpu").world == 1
-    with pytest.raises(ValueError, match="ROADMAP A item 2"):
+    with pytest.raises(ValueError, match="fsdp=2 does not divide the 1"):
         make_mesh("cpu", fsdp=2)
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("RANK", "0")

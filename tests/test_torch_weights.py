@@ -9,6 +9,7 @@ import dataclasses
 import os
 import signal
 import threading
+import time
 from datetime import timedelta
 
 import numpy as np
@@ -234,8 +235,8 @@ def test_shutdown_agreement_across_ranks():
     store.set_timeout(timedelta(seconds=30))
     out = _ranks(store, 2, [None, 1], rounds=4)
     assert out == [[False, True, True, True]] * 2
-    assert not store.check(["asva/graceful_shutdown/0/0"])
-    assert store.check(["asva/graceful_shutdown/3/1"])
+    assert not store.check(["asva/graceful_shutdown/1/0/0"])
+    assert store.check(["asva/graceful_shutdown/1/3/1"])
     lonely = GracefulShutdown(dist.HashStore(), 0, 2)
     lonely.agreement_timeout_s = 0.2
     with pytest.raises(TimeoutError, match="rank 1"):
@@ -247,3 +248,50 @@ def test_shutdown_agreement_across_ranks():
     solo.restore()
     for g in (lonely,):
         g.restore()
+
+
+def test_second_shutdown_loop_ignores_the_first_loops_keys():
+    """Two loops one after the other in one group: in the first, rank 1's
+    SIGTERM flag stops both at round 2.  In the second, rank 1 runs each
+    round late, so rank 0 reaches every round first: a key left by the
+    first loop's rounds must not answer for rank 1 (the parent commit's
+    shared round names made rank 0 read rank 1's old flag in round 2 and
+    stop alone).  restore() leaves only each rank's last key."""
+    store = dist.HashStore()
+    store.set_timeout(timedelta(seconds=30))
+    world, rounds = 2, 4
+
+    def loop(r, flag_at, delay, out):
+        g = GracefulShutdown(store, r, world)
+        g.agreement_timeout_s = 10.0   # a peer that stopped alone
+        for n in range(rounds):
+            time.sleep(delay)
+            if n == flag_at:
+                g.requested = True
+            out[r].append(g.requested_global())
+            if out[r][-1]:
+                break
+        g.restore()
+
+    first = [[], []]
+    threads = [threading.Thread(target=loop, daemon=True,
+                                args=(r, (None, 2)[r], 0.0, first))
+               for r in range(world)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=30)
+    assert first == [[False, False, True]] * 2
+    for r in range(world):
+        assert [store.check([f"asva/graceful_shutdown/1/{n}/{r}"])
+                for n in range(3)] == [False, False, True]
+    second = [[], []]
+    threads = [threading.Thread(target=loop, daemon=True,
+                                args=(r, None, 0.1 * r, second))
+               for r in range(world)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=30)
+    assert not any(th.is_alive() for th in threads)
+    assert second == [[False] * rounds] * 2
