@@ -75,7 +75,8 @@ class OptimConfig:
     resume_from_checkpoint: str = "latest"
     mixed_precision: str = "bf16"   # fp16 in the reference; bf16 here
     enable_gradient_checkpoint: bool = False
-    gradient_checkpoint_policy: str = "highres"  # or "full"/"dots"; see UNet3DConfig.remat_policy
+    # full, highres, l0, saveconv, saveconv0 or dots: UNet3DConfig.remat_policy
+    gradient_checkpoint_policy: str = "highres"
 
 
 @dataclasses.dataclass(frozen=True)

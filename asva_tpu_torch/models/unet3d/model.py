@@ -16,11 +16,27 @@ under bf16 activations.
 
 Remat (`UNet3DConfig.remat`, `remat_policy`) is `torch.utils.checkpoint`
 (non-reentrant) around whole down / mid / up blocks while gradients are
-enabled: "full" rematerialises every block, "highres" only the two
-highest-resolution levels.  asva_tpu's other policies are accepted and
-mapped to the nearer of those two: "dots" to "full"; "l0", "saveconv" and
-"saveconv0" to "highres" (their named-residual saves are not ported).
-Remat changes no output and no gradient.
+enabled, with asva_tpu's policies and level choices (its `maybe_remat`,
+model.py:125-149; level 0 is the highest resolution, the mid block the
+lowest):
+  "full"       every level;
+  "highres"    levels 0 and 1;
+  "l0"         level 0 only;
+  "saveconv"   levels 0 and 1, each keeping the values tagged conv_out,
+               sublayer_x, attn_res and block_out (ops/remat.py): the recompute
+               runs no tagged convolution, no fused attention or FF forward
+               and no flash forward (B4), so B4 runs once a step and B5
+               reads its saved o and lse;
+  "saveconv0"  saveconv's saves at level 0, a full remat at level 1;
+  "dots"       every level, keeping each product without batch dimensions
+               (asva_tpu's dots_with_no_batch_dims_saveable): the outputs
+               of F.linear, the 1x1 convs proj_in / proj_out among them, and
+               K-gemm's products in the fused sub-layers (q and the output
+               projection in B1, the FF's output in B3).  The 3x3
+               convolutions, the flash forward and the temporal attention's
+               batched products are recomputed, as in asva_tpu.
+An unknown policy raises ValueError.  Remat changes no output and no
+gradient: only what is kept and what runs again.
 
 Frame sharding (generation across a seq axis, `pipelines/animation.py`):
 `forward(..., frames=FrameShard)` runs this rank's frames and carries the
@@ -35,7 +51,8 @@ stem: time embedding and conv_in; each down block, the mid block and each
 up block; the head: conv_norm_out and conv_out) runs on its parameters
 gathered for that unit alone, which are freed with the unit's outputs.
 Under autograd every unit is rematerialised, so its backward gathers
-again in the recompute: under FSDP remat covers every level.
+again in the recompute: under FSDP remat covers every level, a level that
+the policy rematerialises with its saves, any other in full.
 """
 from __future__ import annotations
 
@@ -48,6 +65,7 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ...ops import remat
 from ...ops.norms import VideoGroupNorm
 from ...parallel import sharding
 from ..embeddings import TimestepEmbedding, sinusoidal_timestep_embedding
@@ -82,7 +100,7 @@ class UNet3DConfig:
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
     remat: bool = False
-    remat_policy: str = "full"  # or "highres"; see the module docstring
+    remat_policy: str = "full"  # see the module docstring
 
     @classmethod
     def tiny(cls, **kw) -> "UNet3DConfig":
@@ -100,15 +118,34 @@ def _call(module, fsdp: bool, *args):
     return sharding.call_gathered(module, *args) if fsdp else module(*args)
 
 
-def _unit(fn, remat: bool, *args):
-    """fn(*args), rematerialised in the backward when `remat`."""
-    return checkpoint(fn, *args, use_reentrant=False) if remat else fn(*args)
+def _unit(fn, saves, *args):
+    """fn(*args); rematerialised in the backward unless `saves` is None,
+    keeping the values tagged with the names in `saves`."""
+    if saves is None:
+        return fn(*args)
+    if not saves:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=remat.policy(saves))
 
 
-# remat_policy -> the first level (0 = highest resolution) that is NOT
-# rematerialised; None: every level is
-_REMAT_LEVELS = {"full": None, "dots": None, "highres": 2, "l0": 2,
-                 "saveconv": 2, "saveconv0": 2}
+REMAT_POLICIES = ("full", "highres", "l0", "saveconv", "saveconv0", "dots")
+_SAVECONV = (remat.CONV_OUT, remat.SUBLAYER_X,
+             remat.ATTN_RES, remat.BLOCK_OUT)
+
+
+def remat_saves_at(policy: str, level: int):
+    """What `policy` does at resolution `level` (asva_tpu's maybe_remat):
+    None, no remat; (), a full remat; else the names the unit keeps."""
+    if policy == "dots":
+        return (remat.DOT,)
+    if policy in ("highres", "saveconv", "saveconv0") and level >= 2:
+        return None
+    if policy == "l0" and level >= 1:
+        return None
+    if policy == "saveconv" or (policy == "saveconv0" and level == 0):
+        return _SAVECONV
+    return ()
 
 
 class AudioUNet3D(nn.Module):
@@ -116,9 +153,9 @@ class AudioUNet3D(nn.Module):
                  compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         cfg = self.config = config
-        if cfg.remat_policy not in _REMAT_LEVELS:
+        if cfg.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
-                             f"known: {sorted(_REMAT_LEVELS)}")
+                             f"known: {list(REMAT_POLICIES)}")
         self.compute_dtype = compute_dtype
         ch = cfg.block_out_channels
         temb = ch[0] * 4
@@ -160,13 +197,16 @@ class AudioUNet3D(nn.Module):
         self.conv_out = FFInflatedConv(ch[0], cfg.out_channels)
 
     def _run_block(self, block, level: int, *args, fsdp: bool = False):
-        """block(*args), rematerialised in the backward when the config's
-        policy covers this resolution level; under FSDP on its gathered
+        """block(*args), rematerialised in the backward as the config's
+        policy has it at this resolution level; under FSDP on its gathered
         parameters, and always rematerialised."""
-        keep_from = _REMAT_LEVELS[self.config.remat_policy]
-        remat = torch.is_grad_enabled() and (fsdp or (
-            self.config.remat and (keep_from is None or level < keep_from)))
-        return _unit(functools.partial(_call, block, fsdp), remat, *args)
+        saves = None
+        if torch.is_grad_enabled():
+            if self.config.remat:
+                saves = remat_saves_at(self.config.remat_policy, level)
+            if fsdp and saves is None:
+                saves = ()
+        return _unit(functools.partial(_call, block, fsdp), saves, *args)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 text_context: Optional[torch.Tensor],
@@ -207,7 +247,7 @@ class AudioUNet3D(nn.Module):
                frames)
         top = len(cfg.block_out_channels) - 1
         run = functools.partial(self._run_block, fsdp=fsdp)
-        remat = fsdp and torch.is_grad_enabled()
+        edges = () if fsdp and torch.is_grad_enabled() else None
 
         def stem(sample, t_emb):
             return (_call(self.time_embedding, fsdp, t_emb),
@@ -217,7 +257,7 @@ class AudioUNet3D(nn.Module):
             x = F.silu(_call(self.conv_norm_out, fsdp, x, frames))
             return _call(self.conv_out, fsdp, x, frames)
 
-        emb, x = _unit(stem, remat, sample.to(dtype), t_emb)
+        emb, x = _unit(stem, edges, sample.to(dtype), t_emb)
         emb = emb[:, None, :].expand(b, f, emb.shape[-1])
         res_stack = [x]
         for level, block in enumerate(self.down_blocks):
@@ -233,4 +273,4 @@ class AudioUNet3D(nn.Module):
             # up level i mirrors down level (top - i) in resolution
             x = run(block, top - i, x, skips, emb, *ctx)
 
-        return _unit(head, remat, x)
+        return _unit(head, edges, x)

@@ -16,6 +16,12 @@ function as the JAX modules do (:347-365, :468-504): shared frame-0 K/V and
 an unmasked 3-D context go to ops/flat_attention.py (kernel B6), a gathered,
 masked or per-frame context to ops/attention.dot_product_attention.
 
+The remat policies' tags (ops/remat.py) sit where asva_tpu puts them:
+`conv_out` on FFInflatedConv's 2D convolution (primitives.py:122, 208) and
+`dot` on every product without batch dimensions (the 1x1 convs and the
+temporal mix's three taps); the fused sub-layers tag their own outputs
+(ops/fused.py).
+
 Frame-axis operations take `frames`, a `parallel.mesh.FrameShard`, where
 the video's frames are sharded over the seq ranks of a generation mesh
 (None: every frame is here).  Three operations reach across frames, and
@@ -36,7 +42,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ...ops import flat_attention, fused
+from ...ops import flat_attention, fused, remat
 from ...ops.attention import dot_product_attention
 from ...ops.linear import Linear
 from ...parallel import reduce
@@ -51,7 +57,10 @@ def conv2d_channels_last(x: torch.Tensor, weight: torch.Tensor,
 
 
 class Conv2d(nn.Module):
-    """Conv2d on channels-last (n, h, w, c) input; torch weight layout."""
+    """Conv2d on channels-last (n, h, w, c) input; torch weight layout.
+    Its output carries the remat names `save_as` (ops/remat.py)."""
+
+    save_as: tuple = ()
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1,
@@ -66,8 +75,9 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return conv2d_channels_last(x, self.weight.to(x.dtype), bias,
-                                    self.stride, self.padding)
+        return remat.checkpoint_name(self.save_as, conv2d_channels_last, x,
+                                     self.weight.to(x.dtype), bias,
+                                     self.stride, self.padding)
 
 
 class Conv1x1(nn.Module):
@@ -81,8 +91,9 @@ class Conv1x1(nn.Module):
         nn.init.normal_(self.weight, std=1.0 / math.sqrt(in_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.flatten(1).to(x.dtype),
-                        self.bias.to(x.dtype))
+        return remat.checkpoint_name(remat.DOT, F.linear, x,
+                                     self.weight.flatten(1).to(x.dtype),
+                                     self.bias.to(x.dtype))
 
 
 class InflatedConv(Conv2d):
@@ -110,21 +121,26 @@ def temporal_mix(y: torch.Tensor, weight: torch.Tensor,
     index 0's first frame and a shard's first previous frame the previous
     rank's last one, except on seq index 0."""
     c = y.shape[-1]
-    head = F.linear(_frame0(y, frames), weight[:, :c])
-    zp = F.linear(y, weight[:, c:2 * c])
+
+    def tap(v, w):
+        return remat.checkpoint_name(remat.DOT, F.linear, v, w)
+    head = tap(_frame0(y, frames), weight[:, :c])
+    zp = tap(y, weight[:, c:2 * c])
     first = zp[:, :1]
     if frames is not None:
         halo = reduce.prev_frame_halo(zp, frames.group)
         if frames.index > 0:
             first = halo
     prev = torch.cat([first, zp[:, :-1]], dim=1)
-    mix = head + prev + F.linear(y, weight[:, 2 * c:])
+    mix = head + prev + tap(y, weight[:, 2 * c:])
     return y + mix + bias
 
 
 class FFInflatedConv(InflatedConv):
     """Per-frame 2D conv + residual zero-init 3-tap temporal linear mix
-    (`conv_temp`, a Linear(3C, C))."""
+    (`conv_temp`, a Linear(3C, C)).  The conv's output is `conv_out`."""
+
+    save_as = (remat.CONV_OUT,)
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, padding: int = 1):

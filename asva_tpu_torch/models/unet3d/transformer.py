@@ -13,6 +13,11 @@ Sub-layers 1-3 run as fused residual sub-layers: with fuse_blocks=True all
 three through one B2 call (ops/fused.fused_ln_attn3), else each through B1
 (fused_ln_attn).  The FF runs through B3 (fused_ln_geglu).
 
+The remat tags (ops/remat.py) are asva_tpu's: each sub-layer's input is
+`sublayer_x` (transformer.py:111-114: proj_in's output and the temporal
+residual's here, the fused attention sub-layers' outputs in ops/fused.py)
+and the FF's output `block_out` (:203, in ops/fused.py).
+
 `frames` (a `parallel.mesh.FrameShard`) passes a sharded video's frame
 context to the frame-axis sub-layers (primitives.py); the temporal
 position embedding then takes the global indices of this rank's frames.
@@ -24,7 +29,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ...ops import fused
+from ...ops import fused, remat
 from ...ops.linear import Linear
 from ...ops.norms import AdaptiveOrLayerNorm, LayerNormParams, SpatialGroupNorm
 from ..embeddings import TimestepEmbedding, sinusoidal_timestep_embedding
@@ -113,7 +118,9 @@ class SpatioAudioTempTransformerBlock(nn.Module):
             torch.arange(first, first + f, device=x.device,
                          dtype=torch.float32), self.dim)
         pos = self.pos_embedding_temp(pos.to(x.dtype))[None, :, None, :]
-        x = x + self.attn_temp(self.norm_temp(x + pos), frames)
+        x = remat.checkpoint_name(remat.SUBLAYER_X, torch.add, x,
+                                  self.attn_temp(self.norm_temp(x + pos),
+                                                 frames))
         return self.ff(x, self.norm3)
 
 
@@ -143,7 +150,8 @@ class SpatioAudioTempTransformer3D(nn.Module):
                 audio_token_indices=None, fuse_blocks: bool = False,
                 frames=None) -> torch.Tensor:
         b, f, hh, ww, _ = x.shape
-        h = self.proj_in(self.norm(x))
+        h = remat.checkpoint_name(remat.SUBLAYER_X, self.proj_in,
+                                  self.norm(x))
         h = h.reshape(b, f, hh * ww, h.shape[-1])
         for block in self.transformer_blocks:
             h = block(h, text_context, audio_context, audio_token_indices,

@@ -34,6 +34,12 @@ attention forward never re-runs.  `fused_ln_geglu` and `fused_ln_attn3`
 differentiate their plain composites recomputed in the backward (`_ff_bwd`
 :176, `_attn3_bwd` :566), and so does `fused_ff_mix` (`_mix_bwd` :964).  A
 wrapper whose input requires grad always returns a tensor with a grad_fn.
+Their forwards tag what the remat policies keep (ops/remat.py): B1's (o,
+lse) `attn_res` (pallas_fused.py:391-392); its q, its output and B2's and
+B3's outputs `dot` (K-gemm products); B1's and B2's outputs `sublayer_x`
+(in the UNet each is the next residual sub-layer's input) and B3's
+`block_out` (the transformer block's output).  A rematerialised unit that
+keeps them launches nothing for them in its recompute.
 
 Dispatch is by device, not by a memory budget: on CPU tensors each wrapper
 computes its plain PyTorch version (`*_plain`, the port's copy of the
@@ -53,7 +59,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, remat
 from .norms import layer_norm_rows
 
 # per-wrapper count of kernel launches (CUDA path only)
@@ -432,21 +438,32 @@ def _check_sublayer(x, ls, lb, wq, wo, bo, k, v):
         _check_shape(name, t, shape)
 
 
-def _ln_attn_cuda(lib, x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len,
-                  with_lse: bool = False):
-    """K-gemm(LN, q) -> K-attn -> K-gemm(+bo, +x) -> (out, o, lse)."""
+def _q_cuda(lib, x, ls, lb, wq, eps):
+    """K-gemm(LN, q): B1's first launch."""
     g, m, c = x.shape
-    _check_sublayer(x, ls, lb, wq, wo, bo, k, v)
-    _attn_geometry(x, k, v, num_heads, kv_len)   # before the first launch
     q = torch.empty_like(x)
     _gemm(lib, "q", x.view(g * m, c), ls, lb, eps, wq, None, None,
           q.view(g * m, c))
-    o, lse = _mha_fwd_cuda(lib, q, k, v, num_heads, kv_len,
-                           1.0 / math.sqrt(c // num_heads), with_lse)
+    return q
+
+
+def _out_cuda(lib, x, o, wo, bo):
+    """K-gemm(+bo, +x): B1's last launch."""
+    g, m, c = x.shape
     out = torch.empty_like(x)
     _gemm(lib, "out", o.view(g * m, c), None, None, 0.0, wo, bo,
           x.view(g * m, c), out.view(g * m, c))
-    return out, o, lse
+    return out
+
+
+def _ln_attn_cuda(lib, x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len):
+    """K-gemm(LN, q) -> K-attn -> K-gemm(+bo, +x) -> out."""
+    _check_sublayer(x, ls, lb, wq, wo, bo, k, v)
+    _attn_geometry(x, k, v, num_heads, kv_len)   # before the first launch
+    q = _q_cuda(lib, x, ls, lb, wq, eps)
+    o, _ = _mha_fwd_cuda(lib, q, k, v, num_heads, kv_len,
+                         1.0 / math.sqrt(x.shape[-1] // num_heads), False)
+    return _out_cuda(lib, x, o, wo, bo)
 
 
 def _ln_geglu_fwd(x, ls, lb, wi, bi, wo, bo, eps):
@@ -467,21 +484,38 @@ def _ln_geglu_fwd(x, ls, lb, wi, bi, wo, bo, eps):
     return out
 
 
-def _ln_attn_fwd(x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len,
-                 with_lse: bool):
-    """-> (out, o, lse).  With `with_lse` the attention runs as B4 and lse
-    is kept for the backward; o is the same bits either way."""
+def _ln_attn_fwd(x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len):
+    """B1's forward without a graph: the attention runs without lse."""
     if x.device.type == "cpu":
-        q = _ln_q(x, ls, lb, wq, eps)
-        o, lse = mha_fwd_plain(q, k, v, num_heads, kv_len,
-                               1.0 / math.sqrt(x.shape[-1] // num_heads))
-        return _out_proj(x, o, wo, bo), o, lse
+        return ln_attn_plain(x, ls, lb, wq, wo, bo, k, v, eps, num_heads,
+                             kv_len)
     lib = _prepare(x)
     out = _ln_attn_cuda(lib, x, ls, lb, wq, wo, bo, k, v, eps, num_heads,
-                        kv_len, with_lse)
+                        kv_len)
     LAUNCHES["B1"] += 1
-    if with_lse:
-        LAUNCHES["B4"] += 1
+    return out
+
+
+def _ln_q_proj(x, ls, lb, wq, eps):
+    """B1's LN + q projection (K-gemm's first product)."""
+    if x.device.type == "cpu":
+        return _ln_q(x, ls, lb, wq, eps)
+    return _q_cuda(_prepare(x), x, ls, lb, wq, eps)
+
+
+def _ln_attn_res(x, ls, lb, wq, k, v, eps, num_heads, kv_len):
+    """The differentiated B1's residuals (o, lse): q (a `dot`) -> B4."""
+    q = remat.checkpoint_name(remat.DOT, _ln_q_proj, x, ls, lb, wq, eps)
+    return mha_fwd(q, k, v, num_heads, kv_len,
+                   1.0 / math.sqrt(x.shape[-1] // num_heads))
+
+
+def _attn_out(x, o, wo, bo):
+    """The differentiated B1's output x + o Wo^T + bo: its last K-gemm."""
+    if x.device.type == "cpu":
+        return _out_proj(x, o, wo, bo)
+    out = _out_cuda(_prepare(x), x, o, wo, bo)
+    LAUNCHES["B1"] += 1
     return out
 
 
@@ -498,14 +532,14 @@ def _ln_attn3_fwd(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
     if ka.dim() != 4 or tuple(ka.shape[:2]) != (b, f):
         raise ValueError(f"audio K/V must be (B, F, Ska, C), got "
                          f"{tuple(ka.shape)}")
-    h, _, _ = _ln_attn_cuda(lib, x.reshape(b, f * n, c), ls1, lb1, wq1, wo1,
-                            bo1, k1, v1, eps3[0], num_heads, kv_lens[0])
-    h, _, _ = _ln_attn_cuda(lib, h.view(b * f, n, c), lsa, lba, wqa, woa, boa,
-                            ka.reshape((b * f,) + ka.shape[2:]),
-                            va.reshape((b * f,) + va.shape[2:]),
-                            eps3[1], num_heads, kv_lens[1])
-    h, _, _ = _ln_attn_cuda(lib, h.view(b, f * n, c), lst, lbt, wqt, wot, bot,
-                            kt, vt, eps3[2], num_heads, kv_lens[2])
+    h = _ln_attn_cuda(lib, x.reshape(b, f * n, c), ls1, lb1, wq1, wo1, bo1,
+                      k1, v1, eps3[0], num_heads, kv_lens[0])
+    h = _ln_attn_cuda(lib, h.view(b * f, n, c), lsa, lba, wqa, woa, boa,
+                      ka.reshape((b * f,) + ka.shape[2:]),
+                      va.reshape((b * f,) + va.shape[2:]),
+                      eps3[1], num_heads, kv_lens[1])
+    h = _ln_attn_cuda(lib, h.view(b, f * n, c), lst, lbt, wqt, wot, bot,
+                      kt, vt, eps3[2], num_heads, kv_lens[2])
     LAUNCHES["B2"] += 1
     return h.view(b, f, n, c)
 
@@ -628,13 +662,22 @@ class _MhaKvShared(torch.autograd.Function):
 
 class _LnAttn(torch.autograd.Function):
     """pallas_fused.fused_ln_attn's differentiated form (_attn_fwd :366,
-    _attn_bwd :399)."""
+    _attn_bwd :399): q, B4's (o, lse) and the output projection, each a
+    tagged value for the remat policies."""
 
     @staticmethod
     def forward(ctx, x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len):
-        out, o, lse = _ln_attn_fwd(x, ls, lb, wq, wo, bo, k, v, eps,
-                                   num_heads, kv_len,
-                                   with_lse=any(ctx.needs_input_grad))
+        if not any(ctx.needs_input_grad):
+            return _ln_attn_fwd(x, ls, lb, wq, wo, bo, k, v, eps, num_heads,
+                                kv_len)
+        if x.device.type != "cpu":       # checked before the first launch
+            _prepare(x)
+            _check_sublayer(x, ls, lb, wq, wo, bo, k, v)
+            _attn_geometry(x, k, v, num_heads, kv_len)
+        o, lse = remat.checkpoint_name(remat.ATTN_RES, _ln_attn_res, x, ls,
+                                       lb, wq, k, v, eps, num_heads, kv_len)
+        out = remat.checkpoint_name((remat.SUBLAYER_X, remat.DOT), _attn_out,
+                                    x, o, wo, bo)
         ctx.save_for_backward(x, ls, lb, wq, wo, bo, k, v, o, lse)
         ctx.statics = (eps, num_heads, kv_len)
         return out
@@ -681,14 +724,17 @@ class _LnGeglu(torch.autograd.Function):
     def forward(ctx, x, ls, lb, wi, bi, wo, bo, eps):
         ctx.save_for_backward(x, ls, lb, wi, bi, wo, bo)
         ctx.eps = eps
-        return _ln_geglu_fwd(x, ls, lb, wi, bi, wo, bo, eps)
+        return remat.checkpoint_name((remat.BLOCK_OUT, remat.DOT),
+                                     _ln_geglu_fwd, x, ls, lb, wi, bi, wo,
+                                     bo, eps)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         eps = ctx.eps
         return _plain_vjp(lambda *a: ln_geglu_plain(*a, eps),
-                          ctx.saved_tensors, ctx.needs_input_grad, g) + (None,)
+                          ctx.saved_tensors, ctx.needs_input_grad,
+                          g) + (None,)
 
 
 class _LnAttn3(torch.autograd.Function):
@@ -699,7 +745,9 @@ class _LnAttn3(torch.autograd.Function):
     def forward(ctx, eps3, num_heads, kv_lens, *tensors):
         ctx.save_for_backward(*tensors)
         ctx.statics = (eps3, num_heads, kv_lens)
-        return _ln_attn3_fwd(*tensors, eps3, num_heads, kv_lens)
+        return remat.checkpoint_name((remat.SUBLAYER_X, remat.DOT),
+                                     _ln_attn3_fwd, *tensors, eps3,
+                                     num_heads, kv_lens)
 
     @staticmethod
     @torch.autograd.function.once_differentiable

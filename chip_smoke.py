@@ -5,6 +5,7 @@
     python3 chip_smoke.py --profile  # build + one generation request and one
                                      # training step under torch.profiler
     python3 chip_smoke.py --ranks-only  # build + phases 11 and 12 alone
+    python3 chip_smoke.py --remat-only  # build + phase 13 alone
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. build    — nvcc the kernels in asva_tpu_torch/csrc (one process per
@@ -229,6 +230,17 @@ Phases, in order; any failure exits non-zero and prints no result:
                 fresh pair resumes from that checkpoint-2 at fsdp 2, then at
                 fsdp 1: each step-3 loss within 1e-6 relative of the
                 uninterrupted run's.
+ 13. remat    — asva_tpu's six remat policies (full, highres, l0, saveconv,
+                saveconv0, dots; then full again) on phase 5's full-width
+                set-up (batch 4, bf16, cuDNN deterministic): from the same
+                weights and batch, one gradient step (not applied) whose
+                convolutions a dispatch mode counts, then 2 AdamW steps,
+                timed, with their peak memory and each step's launches.
+                Losses and both steps' gradients (by bit
+                digest) must equal the first full run's, the repeat's too;
+                under saveconv B4 must run once per attention sub-layer a
+                step and the convolutions must be those of one forward
+                without a graph (no tagged conv runs again).
 Launch counters are zeroed just before each path run and read just after
 (in each rank for phases 11 and 12).
 
@@ -3763,6 +3775,117 @@ def profile_request(report):
 
 # ---------------------------------------------------------------- main ---
 
+# ------------------------------------------------------------ phase 13 ---
+
+def _conv_counter():
+    """A dispatch mode counting the convolutions that run (not those a
+    remat policy replays)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    import torch
+
+    class Convs(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.convolution.default:
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+    return Convs()
+
+
+def phase_remat(report):
+    """Phase 13: the remat policies at full width; returns the launches
+    summed over its timed steps."""
+    import dataclasses
+    import torch
+    from asva_tpu_torch.models.unet3d.model import REMAT_POLICIES
+    from asva_tpu_torch.models.unet3d.primitives import (CrossAttention,
+                                                         FFSpatialAttention)
+    from asva_tpu_torch.training import TrainState, build_optimizer
+    torch.cuda.empty_cache()
+    cudnn_was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    trainer, state, batch, mask = build_trainer(torch.bfloat16, TRAIN_B)
+    unet = state.unet
+    n_attn = sum(isinstance(m, (FFSpatialAttention, CrossAttention))
+                 for m in unet.modules())
+    start = {n: p.detach().cpu() for n, p in unet.named_parameters()
+             if mask[n]}
+    draws = trainer.draw(batch, _gen(1300))
+    trainer.null_audio_encoding()       # computed once, then cached
+    with torch.no_grad(), _conv_counter() as convs:
+        trainer.loss_fn(batch, draws=draws)
+    convs_forward = convs.n
+    runs, ref, total = {}, None, {}
+    for run, policy in enumerate(REMAT_POLICIES + ("full",)):
+        with torch.no_grad():
+            for n, p in unet.named_parameters():
+                if mask[n]:
+                    p.copy_(start[n])
+        unet.config = dataclasses.replace(unet.config, remat_policy=policy)
+        state = TrainState(0, unet, build_optimizer(
+            unet, 1e-4, mask=mask, weight_decay=1e-2, max_grad_norm=1.0))
+        # an untimed gradient step first: its convolutions counted, and the
+        # policy's allocations made before the timed steps
+        with _conv_counter() as convs:
+            trainer.grad_step(state, batch, draws=draws)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, seconds, counts, digests = [], [], [], []
+        for i in range(2):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, grads = trainer.grad_step(
+                state, batch, draws=trainer.draw(batch, _gen(1300 + i)))
+            trainer.apply_step(state, grads)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            counts.append(read_counts())
+            losses.append(loss.item())
+            digests.append(_digest(grads).tolist())
+            del grads
+        peak = torch.cuda.max_memory_allocated()
+        for c in counts:
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        if ref is None:
+            ref = (losses, digests)
+        same = (losses, digests) == ref
+        key = policy if run < len(REMAT_POLICIES) else "full (repeat)"
+        runs[key] = dict(seconds_per_step=seconds, max_memory_allocated=peak,
+                         losses=losses, launches_per_step=counts,
+                         convs_per_step=convs.n, bit_equal_to_full=same)
+        log(f"  remat {key}: seconds per step "
+            f"{[round(x, 3) for x in seconds]}; peak "
+            f"{peak / 2**30:.2f} GiB; B4 {[c['B4'] for c in counts]}, B5 "
+            f"{[c['B5'] for c in counts]}, B1 {[c['B1'] for c in counts]}, "
+            f"B3 {[c['B3'] for c in counts]} a step; convolutions "
+            f"{convs.n} a step ({convs_forward} in a forward without a "
+            f"graph); losses {losses}; losses and gradients bit-equal to "
+            f"full's: {same} ({report['card']})")
+    torch.backends.cudnn.deterministic = cudnn_was
+    out = dict(batch_size=TRAIN_B, attention_sublayers=n_attn,
+               convs_in_a_forward=convs_forward, runs=runs,
+               card=report["card"])
+    report["remat"] = out
+    save = runs["saveconv"]
+    # losses and both steps' gradients bit-equal across the policies (no
+    # kernel of the path sums with atomics; cuDNN deterministic); the repeat
+    # of full shows the run is deterministic
+    bad = [k for k, r in runs.items()
+           if not all(math.isfinite(x) for x in r["losses"])
+           or not r["bit_equal_to_full"]]
+    if bad or not (all(c["B4"] == n_attn and c["B5"] == n_attn
+                       for c in save["launches_per_step"])
+                   and save["convs_per_step"] == convs_forward):
+        fail(f"remat policies: {bad or 'saveconv counts'}: {out}")
+    del trainer, state, batch
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3837,6 +3960,13 @@ def main() -> int:
         with open(os.path.join(out_dir, "profile.json"), "w") as f:
             json.dump(report, f, indent=1)
         return 0
+    if "--remat-only" in sys.argv[1:]:
+        log(f"phase 13 alone: the remat policies on {card}")
+        phase_remat(report)
+        with open(os.path.join(out_dir, "chip_smoke_remat.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        print(card)
+        return 0
     if "--ranks-only" in sys.argv[1:]:
         log(f"phases 11-12 alone: training and generation across {RANKS} "
             f"processes on {card}")
@@ -3874,6 +4004,8 @@ def main() -> int:
     rank_counts = phase_ranks(report)
     log("phase 12: generation at data 2 and seq 2, FSDP at fsdp 2")
     p12 = phase_parallel_gen_fsdp(report)
+    log("phase 13: the remat policies")
+    remat_counts = phase_remat(report)
 
     # launches on each driven path: B1 and B3 run in generation and training
     by_path = {
@@ -3903,9 +4035,11 @@ def main() -> int:
         by_path[key]["serve warmup, 3 clips"] = serve_counts[key]
         by_path[key][f"generation, {RANKS} ranks at data 2 and seq 2"] = \
             p12["generation"][key]
+    remat_path = "train under the 6 remat policies and full again, 2 steps"
     for key in ("B1", "B3", "B4", "B5"):
         by_path[key][f"animation_train fsdp 2, {RANKS} ranks, 3 + 2 x 1 "
                      "steps"] = p12["fsdp"][key]
+        by_path[key][remat_path] = remat_counts[key]
     for form in ("q", "out", "ff1", "ff2"):
         key = f"KG.{form}"
         by_path[key] = {"unet fuse_blocks=False": b1_counts[key],
@@ -3923,7 +4057,8 @@ def main() -> int:
                         f"generation, {RANKS} ranks at data 2 and seq 2":
                             p12["generation"][key],
                         f"animation_train fsdp 2, {RANKS} ranks, 3 + 2 x 1 "
-                        "steps": p12["fsdp"][key]}
+                        "steps": p12["fsdp"][key],
+                        remat_path: remat_counts[key]}
     kernels = []
     for name, (replaces, tpu, sources) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name

@@ -451,6 +451,40 @@ def test_fused_ln_attn_gradients_on_card(dev, dtype, c, heads, m, sk, kv_len):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_ln_attn_backward_on_saved_o_lse(dev, dtype):
+    """A rematerialised B1 sub-layer under saveconv's saves: B4 runs once
+    and B5 reads the first forward's o and lse, with the same output and the
+    same gradient bits for x, every parameter, k and v as under a full
+    recompute (B1 and B4 twice)."""
+    from torch.utils.checkpoint import checkpoint
+    from asva_tpu_torch.models.unet3d.model import remat_saves_at
+    from asva_tpu_torch.ops import remat
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    c, heads, m, sk = 320, 8, 130, 77
+    args = _leaves([_r(gen, (3, m, c), dtype)] + _sub(gen, c, dtype)
+                   + [_r(gen, (3, sk, c), dtype), _r(gen, (3, sk, c), dtype)])
+    w = torch.randn((3, m, c), device="cuda", generator=gen)
+
+    def sublayer(*a):
+        return fused.fused_ln_attn(*a, 1e-5, heads, 60)
+
+    def run(**kw):
+        before = dict(fused.LAUNCHES)
+        out = checkpoint(sublayer, *args, use_reentrant=False, **kw)
+        grads = torch.autograd.grad((out.float() * w).sum(), args)
+        return out, grads, {k: fused.LAUNCHES[k] - before[k]
+                            for k in ("B1", "B4", "B5")}
+    out_s, grads_s, n_s = run(
+        context_fn=remat.policy(remat_saves_at("saveconv", 0)))
+    out_f, grads_f, n_f = run()
+    assert n_s == {"B1": 1, "B4": 1, "B5": 1}
+    assert n_f == {"B1": 2, "B4": 2, "B5": 1}
+    assert torch.equal(out_s, out_f)
+    for a, b in zip(grads_s, grads_f):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_fused_ln_geglu_gradients_on_card(dev, dtype):
     gen = torch.Generator(device="cuda").manual_seed(6)
     m, c = 200, 320
