@@ -81,7 +81,8 @@ def maybe_initialize_distributed(device="cuda") -> bool:
     on as one process would train on duplicate data and overwrite each
     other's checkpoints (asva_tpu/parallel/multihost.py:46-55).  The backend
     follows `local_layout(device)`; a CUDA rank's card becomes its current
-    device."""
+    device, and under NCCL the group is bound to that card at init
+    (`device_id`), so no communicator guesses its device."""
     import torch.distributed as dist
     if _initialized():
         return True
@@ -93,8 +94,9 @@ def maybe_initialize_distributed(device="cuda") -> bool:
         torch.cuda.set_device(dev)
     timeout = datetime.timedelta(seconds=TIMEOUT_S)
     try:
-        dist.init_process_group(backend, init_method="env://",
-                                timeout=timeout)
+        dist.init_process_group(
+            backend, init_method="env://", timeout=timeout,
+            device_id=torch.device(dev) if backend == "nccl" else None)
     except Exception as e:
         raise RuntimeError(
             f"torch.distributed.init_process_group({backend!r}) failed "

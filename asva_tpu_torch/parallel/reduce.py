@@ -19,13 +19,16 @@ Over one axis of a mesh (a subgroup; parallel/mesh.py):
     0 (the first-frame K/V and the temporal mix's head tap), and the
     temporal mix's previous frame at a shard's edge.
 
-Backends.  Gloo takes CUDA tensors only in broadcast and all_reduce (the
-card's machine runs its ranks on one card over gloo,
-`multihost.local_layout`), so on gloo a gather or a send of a CUDA tensor
-is staged through the host and a reduce-scatter is an all_reduce of which
-each rank keeps its part; on NCCL they call all_gather_into_tensor,
-reduce_scatter_tensor and send/recv.  The choice follows the group's
-backend.  A failed collective raises.
+Backends.  Gloo takes CUDA tensors only in broadcast and all_reduce (ranks
+that share a card run over gloo, `multihost.local_layout`), so on gloo a
+gather or a send of a CUDA tensor is staged through the host and a
+reduce-scatter is an all_reduce of which each rank keeps its part; on NCCL
+(a card a rank) they call all_gather_into_tensor, reduce_scatter_tensor
+and send/recv.  The choice follows the group's backend.  A failed
+collective raises.  Either backend sums the ranks' values in an order
+that depends on the collective and on an element's place in its buffer:
+beyond two ranks, a gradient reduced alone (FSDP) and the same gradient
+reduced in a bucket (data parallelism) may differ in the last bits.
 
 Replica tensors travel in flat buckets of one dtype and device of at most
 BUCKET_BYTES, so a model's thousand tensors cost tens of collectives, not a

@@ -6,6 +6,10 @@
                                      # training step under torch.profiler
     python3 chip_smoke.py --ranks-only  # build + phases 11 and 12 alone
     python3 chip_smoke.py --remat-only  # build + phase 13 alone
+    python3 chip_smoke.py --cards-only  # build + phase 14 alone (4 cards)
+
+With four visible cards the default run ends with phase 14; with fewer it
+says that phase 14 was not run and why.
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. build    — nvcc the kernels in asva_tpu_torch/csrc (one process per
@@ -180,10 +184,11 @@ Phases, in order; any failure exits non-zero and prints no result:
                 exists;
   11. ranks   — training across 2 processes: this script again as each
                 rank (--rank-job), with torchrun's variables on a free
-                localhost port, joined through maybe_initialize_distributed
-                (gloo with both ranks on cuda:0 where the machine has one
-                card, NCCL where each rank has its own); the kernels are
-                already built.  One pair: process_allgather and
+                localhost port, joined through maybe_initialize_distributed;
+                the ranks of phases 11 and 12 see the first card alone
+                (CUDA_VISIBLE_DEVICES) and share it over gloo, on a machine
+                of one card or of four; the kernels are already built.
+                One pair: process_allgather and
                 gather_metric_records against numpy, exactly; an fp32
                 micro-step at full width, batch 1 a rank, against one
                 process on both rows (gradients within 1e-4 relative L2,
@@ -241,8 +246,34 @@ Phases, in order; any failure exits non-zero and prints no result:
                 under saveconv B4 must run once per attention sub-layer a
                 step and the convolutions must be those of one forward
                 without a graph (no tagged conv runs again).
+ 14. cards    — phases 11 and 12's meshes on 4 cards, one a rank over NCCL
+                (4 rank processes with LOCAL_WORLD_SIZE 4, each seeing every
+                card: multihost.local_layout gives rank r NCCL and cuda:r,
+                the group bound to its card; each rank logs its backend,
+                device and NCCL version).  One process's references first,
+                on cuda:0, as phase 12's.  One group generates at data 4
+                (four requests, a clip a rank), seq 4 (one clip, 3 of its
+                12 frames a rank: ranks 1 and 2 take a halo and hand one
+                on) and data 2 x seq 2 (two clips, 6 frames a rank), bf16
+                and fp32, under phase 12's gates.  One group runs
+                animation_train.train for 3 steps at data 4, at fsdp 4 and
+                at data 2 x fsdp 2 (batch 4 a rank x accumulation 2, 24
+                ChipClips a rank), each writing checkpoint-2 alone (rank
+                0): the replicas bit-equal after every step (a split
+                parameter's block on the ranks of its fsdp index), the FSDP
+                losses within 1e-6 relative of data 4's (bit equality
+                printed), seconds per step (saves excluded), peak per rank,
+                the gradient all-reduce's (or the gathers' and
+                reduce-scatters') count, seconds and bytes a step; then
+                the classifier step in fp64, 1 item a rank, against one
+                process on the 4 (gradients and running statistics within
+                1e-4 relative L2), and avsync_train.train + evaluate at data
+                4; first, the host gathers of phase 11 over the gloo host
+                group that multihost makes beside NCCL.  A fresh group resumes fsdp 4's checkpoint-2 at fsdp 4
+                and at fsdp 1: each step-3 loss within 1e-6 relative of the
+                uninterrupted run's.
 Launch counters are zeroed just before each path run and read just after
-(in each rank for phases 11 and 12).
+(in each rank for phases 11, 12 and 14).
 
 Tolerances (max |kernel - plain| over an output):
   fp32  <= 1e-4 * max(1, max|plain|): fp32 products; only the summation
@@ -2086,6 +2117,19 @@ def _job_yaml(src, tmp, name, edit):
     return path
 
 
+def _animation_yamls(tmp, names):
+    """{name: a copy of the AVSync15 YAML writing to <tmp>/<name>, a log
+    record a step, a checkpoint every 2 steps kept as a milestone}."""
+    def edit(raw, name):
+        raw["exp"]["output_dir"] = os.path.join(tmp, name)
+        raw["train"]["log_steps"] = 1
+        raw["optim"]["checkpointing_steps"] = 2
+        raw["optim"]["checkpointing_milestones"] = 2
+    return {name: _job_yaml(ANIMATION_YAML, tmp, name,
+                            lambda raw, name=name: edit(raw, name))
+            for name in names}
+
+
 @contextlib.contextmanager
 def _timed_saves(marks):
     """Record (step, card idle, save done) host times of every checkpoint
@@ -2617,8 +2661,8 @@ def _rel_l2(got, want) -> float:
 
 def rank_gathers(mesh, spec, tmp):
     """process_allgather tiled and stacked; gather_metric_records with
-    ragged counts, an index on both ranks and, second, an empty rank with
-    value_shape; each against the numpy answer, exactly."""
+    ragged counts, an index on several ranks and, second, empty ranks with
+    value_shape; each against the numpy answer, exactly (2 or 4 ranks)."""
     import numpy as np
     from asva_tpu_torch.parallel import multihost
     parts = [np.arange(6, dtype=np.float64).reshape(2, 3) + 100 * r
@@ -2626,8 +2670,11 @@ def rank_gathers(mesh, spec, tmp):
     tiled = multihost.process_allgather(parts[mesh.rank])
     stacked = multihost.process_allgather(parts[mesh.rank], tiled=False)
     records = [([5, 1, 3], [[1.0, 0.0], [0.0, 1.0], [1.0, 1.0]]),
-               ([3, 7], [[0.0, 0.0], [1.0, 0.0]])]
-    empty = [([4, 2], [[1.0, 1.0], [0.0, 1.0]]), ([], [])]
+               ([3, 7], [[0.0, 0.0], [1.0, 0.0]]),
+               ([7, 2], [[2.0, 0.0], [0.0, 2.0]]),
+               ([9], [[3.0, 3.0]])][:mesh.world]
+    empty = [([4, 2], [[1.0, 1.0], [0.0, 1.0]]), ([], []),
+             ([8, 4], [[1.0, 2.0], [2.0, 1.0]]), ([], [])][:mesh.world]
     got = [multihost.gather_metric_records(*records[mesh.rank]),
            multihost.gather_metric_records(*empty[mesh.rank],
                                            value_shape=(2,))]
@@ -2799,7 +2846,8 @@ def rank_sync_steps(mesh, spec, tmp):
     fp64 on one item a rank.  fp32 cannot hold the gradients closer than
     that floor: the training-mode BatchNorm backward of the video tower
     cancels most of the gradient it receives, and rounding is what is
-    left."""
+    left.  The spec's "sync_dtypes" may keep one of the two (phase 14:
+    fp64 alone)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2807,15 +2855,18 @@ def rank_sync_steps(mesh, spec, tmp):
     from asva_tpu_torch.data.loader import _collate
     from asva_tpu_torch.parallel import multihost
     cfg = SyncJobConfig.from_yaml(spec["sync"])
-    n = SYNC_REDUCED_B * mesh.world
+    runs = [(dtype, per_rank) for dtype, per_rank in (
+        (torch.float32, SYNC_REDUCED_B), (torch.float64, 1))
+        if str(dtype).split(".")[-1] in spec.get("sync_dtypes",
+                                                 ("float32", "float64"))]
+    n = max(per_rank for _, per_rank in runs) * mesh.world
     items = ChipPairs(n, cfg.train_dataset, cfg.seed)
     batch = _collate([items[i] for i in range(n)])
     batch = {k: np.asarray(batch[k], np.float64)
              for k in ("waveforms", "videos")}
     solo = dist.new_group([0])
     out = {}
-    for dtype, per_rank in ((torch.float32, SYNC_REDUCED_B),
-                            (torch.float64, 1)):
+    for dtype, per_rank in runs:
         rows = slice(mesh.rank * per_rank, (mesh.rank + 1) * per_rank)
         grads, stats = _classifier_step(mesh, cfg, batch, rows, mesh, dtype)
         res = dict(items_per_rank=per_rank,
@@ -2930,8 +2981,15 @@ def rank_worker(job, tmp) -> int:
     with open(os.path.join(tmp, "spec.json")) as f:
         spec = json.load(f)
     spec["run"] = RANK_RUNS.get(job)
+    nccl = torch.cuda.nccl.version() if mesh.backend == "nccl" else None
+    if isinstance(nccl, tuple):
+        nccl = ".".join(map(str, nccl))
     res = dict(rank=mesh.rank, world=mesh.world, device=mesh.device,
-               backend=mesh.backend, device_count=torch.cuda.device_count())
+               backend=mesh.backend, device_count=torch.cuda.device_count(),
+               current_device=torch.cuda.current_device(), nccl=nccl)
+    log(f"rank {mesh.rank} of {mesh.world}: backend {mesh.backend}, device "
+        f"{mesh.device} (current {res['current_device']} of "
+        f"{res['device_count']} visible), NCCL {nccl}")
     for name, part in RANK_JOBS[job]:
         if torch.cuda.is_available():
             torch.cuda.reset_peak_memory_stats()
@@ -2947,10 +3005,19 @@ def rank_worker(job, tmp) -> int:
     return 0
 
 
-def _run_ranks(job, tmp, phase=11):
-    """Start RANKS rank processes of `job` on a free localhost port and wait
-    for both; one that fails or outlives RANKS_TIMEOUT_S kills them all and
-    fails the phase with the end of its output.  Returns (the ranks'
+def _first_card():
+    """This process's first card, as CUDA_VISIBLE_DEVICES names it."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    return visible.split(",")[0].strip() if visible else "0"
+
+
+def _run_ranks(job, tmp, phase=11, ranks=RANKS):
+    """Start `ranks` rank processes of `job` on a free localhost port
+    (LOCAL_WORLD_SIZE = ranks) and wait for all; one that fails or
+    outlives RANKS_TIMEOUT_S kills them all and fails the phase with the
+    end of its output.  The ranks of phases 11 and 12 see the first card
+    alone and share it over gloo, as on a machine of one card; phase 14's
+    see every card and take one each (NCCL).  Returns (the ranks'
     results, seconds)."""
     import shutil
     import socket
@@ -2958,12 +3025,14 @@ def _run_ranks(job, tmp, phase=11):
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-               WORLD_SIZE=str(RANKS), LOCAL_WORLD_SIZE=str(RANKS))
-    logs = [os.path.join(tmp, f"{job}.{r}.log") for r in range(RANKS)]
+               WORLD_SIZE=str(ranks), LOCAL_WORLD_SIZE=str(ranks))
+    if phase in (11, 12):
+        env["CUDA_VISIBLE_DEVICES"] = _first_card()
+    logs = [os.path.join(tmp, f"{job}.{r}.log") for r in range(ranks)]
     procs = []
     t0 = time.perf_counter()
     try:
-        for rank in range(RANKS):
+        for rank in range(ranks):
             env.update(RANK=str(rank), LOCAL_RANK=str(rank))
             with open(logs[rank], "w") as f:
                 procs.append(subprocess.Popen(
@@ -2996,7 +3065,7 @@ def _run_ranks(job, tmp, phase=11):
                 shutil.copy(path, os.path.join(
                     out_dir, f"phase{phase}_" + os.path.basename(path)))
     results = []
-    for r in range(RANKS):
+    for r in range(ranks):
         with open(os.path.join(tmp, f"{job}.{r}.json")) as f:
             results.append(json.load(f))
     return results, time.perf_counter() - t0
@@ -3070,14 +3139,7 @@ def phase_ranks(report):
     os.environ["WANDB_MODE"] = "disabled"
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        spec = {}
-        for name in ("uninterrupted", "resumed"):
-            def edit(raw, out_dir=os.path.join(tmp, name)):
-                raw["exp"]["output_dir"] = out_dir
-                raw["train"]["log_steps"] = 1
-                raw["optim"]["checkpointing_steps"] = 2
-                raw["optim"]["checkpointing_milestones"] = 2
-            spec[name] = _job_yaml(ANIMATION_YAML, tmp, name, edit)
+        spec = _animation_yamls(tmp, ("uninterrupted", "resumed"))
 
         def edit_sync(raw):
             raw["exp"]["output_dir"] = os.path.join(tmp, "sync")
@@ -3272,19 +3334,31 @@ def _timed_exchanges(stats):
 
 
 def rank_generation(mesh, spec, tmp):
-    """Phase 12 (a) and (b): each generation mesh and dtype: a warm-up
-    call, a timed call (its B2/B3 launches), and a call returning the
-    latents with the frame exchanges timed; rank 0 writes the gathered
-    videos and latents."""
+    """Phase 12 (a) and (b), phase 14 (a): each generation mesh of the
+    spec's cases (GEN_CASES by default) and dtype: a warm-up call, a timed
+    call (its B2/B3 launches), and a call returning the latents with the
+    frame exchanges timed; rank 0 writes the gathered videos and latents.
+    Where the spec asks for "one_card", each rank first times one clip's
+    request without a mesh on its own card (after a warm-up call): one
+    card's time in the same run."""
     import torch
     from asva_tpu_torch.parallel import make_gen_mesh, multihost
     from asva_tpu_torch.pipelines.animation import AnimationPipeline
+    cases = spec.get("gen_cases", GEN_CASES)
     meshes = {case: make_gen_mesh(DEVICE, seq=seq)
-              for case, (seq, _) in GEN_CASES.items()}
+              for case, (seq, _) in cases.items()}
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         base = _gen_pipeline(dtype, _gen_inputs(1)[3])
-        for case, (seq, n) in GEN_CASES.items():
+        if spec.get("one_card"):
+            _generate(base, 1, True)
+            _sync()
+            t0 = time.perf_counter()
+            _generate(base, 1, True)
+            _sync()
+            out[f"one_card_{str(dtype).split('.')[-1]}"] = \
+                time.perf_counter() - t0
+        for case, (seq, n) in cases.items():
             gmesh = meshes[case]
             name = f"{case}_{str(dtype).split('.')[-1]}"
             pipe = AnimationPipeline(base.unet, base.vae, base.audio_encoder,
@@ -3324,24 +3398,46 @@ def rank_generation(mesh, spec, tmp):
     return out
 
 
+def _replicas_equal(mesh, params) -> bool:
+    """Whether every rank's `params` equal, bit for bit, those of the
+    ranks that should hold the same values: a split parameter's block on
+    the ranks of one fsdp index (rank r and r % fsdp), the rest on every
+    rank (by `_digest`, gathered over the host group)."""
+    from asva_tpu_torch.parallel import sharding
+    digests = _gathered_digests(params)
+    fsdp = mesh.size("fsdp")
+    split = [sharding.is_sharded(p) for p in params]
+    return all(bool((digests[r, i] == digests[r % fsdp if s else 0, i])
+                    .all()) for r in range(mesh.world)
+               for i, s in enumerate(split))
+
+
 def _fsdp_run(mesh, name, spec, fsdp):
     """animation_train.train at `fsdp` on the run `name`'s YAML for 3
-    steps (a resumed run: to 3), writing checkpoint-2 alone: each step's
-    gathers, reduce-scatters and the clip's gathers (count, seconds with
-    the card synchronised, bytes), the peak memory of each step and of
-    each save, the files this rank wrote and its launches."""
+    steps (a resumed run: to 3), writing checkpoint-2 alone (dropped after
+    the run where the spec's "drop_ckpts" names it), on 24 ChipClips a
+    rank: each step's gathers, reduce-scatters, the replicas' gradient
+    all-reduce and the clip's gathers (count, seconds with the card
+    synchronised, bytes; the all-reduce after a barrier), whether the
+    replicas are bit-equal after each step, each step's seconds after the
+    first (its save's excluded) and each save's, the peak memory of each
+    step and of each save, the files this rank wrote and its launches."""
+    import shutil
+
     import torch
     from asva_tpu_torch.config import AnimationJobConfig
-    from asva_tpu_torch.parallel import sharding
+    from asva_tpu_torch.parallel import multihost, sharding
     from asva_tpu_torch.scripts import animation_train
     from asva_tpu_torch.training import animation_trainer, checkpoint
     cfg = AnimationJobConfig.from_yaml(spec[name])
     label, comms, peaks, written = ["build"], {}, {}, []
+    replicas, saves = [], []
     trainer_cls = animation_trainer.AnimationTrainer
     state_cls = animation_trainer.TrainState
     mgr = checkpoint.CheckpointManager
     orig = dict(gather=sharding.gather, full_gather=sharding.full_tensor,
                 reduce_scatter=sharding.reduce_scatter_mean,
+                all_reduce=animation_trainer.all_reduce_mean_,
                 grad_step=trainer_cls.grad_step,
                 apply_step=trainer_cls.apply_step,
                 state_dict=state_cls.state_dict, save=mgr.save,
@@ -3364,6 +3460,20 @@ def _fsdp_run(mesh, name, spec, fsdp):
             return y
         return run
 
+    def all_reduce(tensors, m):
+        tensors = list(tensors)
+        _sync()
+        multihost.barrier()
+        t0 = time.perf_counter()
+        nbytes = orig["all_reduce"](tensors, m)
+        _sync()
+        row = comms.setdefault(label[0], {}).setdefault("all_reduce",
+                                                        [0, 0.0, 0])
+        row[0] += 1
+        row[1] += time.perf_counter() - t0
+        row[2] += nbytes
+        return nbytes
+
     def relabel(new):
         """Close the peak of the window `label` names, open `new`'s."""
         _sync()
@@ -3380,12 +3490,14 @@ def _fsdp_run(mesh, name, spec, fsdp):
     def apply_step(self, state, grads, mesh=None):
         orig["apply_step"](self, state, grads, mesh)
         relabel(label[0])
+        replicas.append(_replicas_equal(mesh, state.optimizer.params))
 
     # phase 12 writes checkpoint-2 alone: the loop's final forced save at
     # step 3 neither gathers the state nor writes it
     def state_dict(self):
         if self.step == 3:
             return {"unet": None}
+        saves.append([time.perf_counter()])
         relabel(f"save {self.step}")
         full = orig["state_dict"](self)
         relabel(label[0])
@@ -3394,7 +3506,9 @@ def _fsdp_run(mesh, name, spec, fsdp):
     def save(self, step, *a, force=False, **kw):
         if force and step == 3:
             return False
-        return orig["save"](self, step, *a, force=force, **kw)
+        done = orig["save"](self, step, *a, force=force, **kw)
+        saves[-1].append(time.perf_counter())
+        return done
 
     def write(path, fn):
         written.append(os.path.relpath(path, cfg.output_dir))
@@ -3402,20 +3516,22 @@ def _fsdp_run(mesh, name, spec, fsdp):
     sharding.gather = timed("gather")
     sharding.full_tensor = timed("full_gather")
     sharding.reduce_scatter_mean = timed("reduce_scatter")
+    animation_trainer.all_reduce_mean_ = all_reduce
     trainer_cls.grad_step, trainer_cls.apply_step = grad_step, apply_step
     state_cls.state_dict, mgr.save = state_dict, save
     checkpoint._write_atomic = write
     try:
         reset_counts()
         res = animation_train.train(
-            cfg, ChipClips(RANK_ITEMS, cfg.dataset, cfg.seed), DEVICE, 3,
-            fsdp=fsdp)
+            cfg, ChipClips(24 * mesh.world, cfg.dataset, cfg.seed), DEVICE,
+            3, fsdp=fsdp)
         counts = read_counts()
         relabel("end")
     finally:
         sharding.gather, sharding.full_tensor = (orig["gather"],
                                                  orig["full_gather"])
         sharding.reduce_scatter_mean = orig["reduce_scatter"]
+        animation_trainer.all_reduce_mean_ = orig["all_reduce"]
         trainer_cls.grad_step = orig["grad_step"]
         trainer_cls.apply_step = orig["apply_step"]
         state_cls.state_dict, mgr.save = orig["state_dict"], orig["save"]
@@ -3426,12 +3542,16 @@ def _fsdp_run(mesh, name, spec, fsdp):
                resumed_from=res["resumed_from"], loader=res["loader"],
                split_parameters=split,
                parameters=sum(1 for _ in state.unet.parameters()),
-               seconds_per_step=[round(b - a, 3) for a, b in zip(
+               seconds_per_step=[round(b - a - sum(
+                   e - s for s, e in saves if a < s < b), 3) for a, b in zip(
                    res["step_times"], res["step_times"][1:])],
+               save_seconds=[round(e - s, 3) for s, e in saves],
                comms=comms, peaks=peaks, peak=max(peaks.values()),
-               written=written, launches=counts)
+               written=written, replicas_equal=replicas, launches=counts)
     del res, state
     torch.cuda.empty_cache()
+    if mesh.rank == 0 and name in spec.get("drop_ckpts", ()):
+        shutil.rmtree(os.path.join(cfg.output_dir, "ckpts"))
     return out
 
 
@@ -3444,13 +3564,37 @@ RANK_JOBS.update({
             mesh, f"resume{n}", spec, n)) for n in (2, 1))})
 
 
-def _one_process_references():
-    """Each phase-12 case's one-process results on the same inputs and
-    noise: fp32 videos and latents through the kernels, and the latents of
-    the plain sub-layers in fp32 and bf16 (phase 4's bf16 gate)."""
+def _generation_ranks(gen_rows):
+    """{case_dtype: each rank's place, seconds, launches and exchanges}."""
+    return {k: [{f: r[f] for f in (
+        "coords", "seconds_per_request", "seconds_with_exchanges_timed",
+        "launches", "exchanges")} for r in rows]
+        for k, rows in gen_rows.items()}
+
+
+def _log_generation(generation_ranks):
+    for k, rows in generation_ranks.items():
+        log(f"  {k}: per rank {[(r['coords'], round(r['seconds_per_request'], 3), r['launches']) for r in rows]}"
+            f"; frame exchanges (calls, s, bytes) on rank 0 "
+            f"{ {n: [v[0], round(v[1], 4), v[2]] for n, v in rows[0]['exchanges'].items()} }"
+            f" in a request of {round(rows[0]['seconds_with_exchanges_timed'], 3)} s")
+
+
+def _log_comms(comms):
+    """Rank 0's collectives by step and save: count, seconds, GiB."""
+    for step, kinds in comms.items():
+        log(f"    rank 0 {step}: " + "; ".join(
+            f"{kind} x{v[0]} {v[1]:.4f} s {v[2] / 2**30:.3f} GiB"
+            for kind, v in kinds.items()))
+
+
+def _one_process_references(cases=GEN_CASES):
+    """Each case's one-process results on the same inputs and noise: fp32
+    videos and latents through the kernels, and the latents of the plain
+    sub-layers in fp32 and bf16 (phase 4's bf16 gate)."""
     import torch
     refs = {}
-    for case, (_, n) in GEN_CASES.items():
+    for case, (_, n) in cases.items():
         null = _gen_inputs(n)[3]
         pipe = _gen_pipeline(torch.float32, null)
         ref = dict(videos=_generate(pipe, n, True).cpu(),
@@ -3467,15 +3611,15 @@ def _one_process_references():
     return refs
 
 
-def _gen_checks(tmp, refs, results):
-    """phase 12's generation gates: fp32 videos within one uint8 level of
-    one process, fp32 latents within 1e-4 * max(1, max|ref|), bf16 latents
-    within 1.5x the plain bf16 version's relative RMS from the fp32 plain
-    ones; the ranks' results equal; B2 = B3 = 80 per rank (16 blocks x 5
-    steps, one process's count)."""
+def _gen_checks(tmp, refs, results, cases=GEN_CASES):
+    """phase 12's generation gates (phase 14's too): fp32 videos within one
+    uint8 level of one process, fp32 latents within 1e-4 * max(1,
+    max|ref|), bf16 latents within 1.5x the plain bf16 version's relative
+    RMS from the fp32 plain ones; the ranks' results equal; B2 = B3 = 80
+    per rank (16 blocks x 5 steps, one process's count)."""
     import torch
     checks, numbers = {}, {}
-    for case in GEN_CASES:
+    for case in cases:
         ref = refs[case]
         got32 = torch.load(os.path.join(tmp, f"gen_{case}_float32.pt"))
         got16 = torch.load(os.path.join(tmp, f"gen_{case}_bfloat16.pt"))
@@ -3502,7 +3646,7 @@ def _gen_checks(tmp, refs, results):
             rows = [r["generation"][f"{case}_{dname}"] for r in results]
             checks[f"{case} {dname}: ranks equal, global shape"] = all(
                 r["ranks_equal"] and r["shape"][:2]
-                == [GEN_CASES[case][1], F] for r in rows)
+                == [cases[case][1], F] for r in rows)
             checks[f"{case} {dname}: B2 = B3 = 80 a rank"] = all(
                 r["launches"] == {"B2": 80, "B3": 80} for r in rows)
     return checks, numbers
@@ -3559,14 +3703,7 @@ def phase_parallel_gen_fsdp(report):
     ref_s = time.perf_counter() - t_phase
     os.environ["WANDB_MODE"] = "disabled"
     with tempfile.TemporaryDirectory() as tmp:
-        spec = {}
-        for name in ("fsdp", "resume2", "resume1"):
-            def edit(raw, out_dir=os.path.join(tmp, name)):
-                raw["exp"]["output_dir"] = out_dir
-                raw["train"]["log_steps"] = 1
-                raw["optim"]["checkpointing_steps"] = 2
-                raw["optim"]["checkpointing_milestones"] = 2
-            spec[name] = _job_yaml(ANIMATION_YAML, tmp, name, edit)
+        spec = _animation_yamls(tmp, ("fsdp", "resume2", "resume1"))
         with open(os.path.join(tmp, "spec.json"), "w") as f:
             json.dump(spec, f)
         gen, gen_s = _run_ranks("gen", tmp, 12)
@@ -3597,10 +3734,7 @@ def phase_parallel_gen_fsdp(report):
         seconds=seconds, reference_seconds=ref_s,
         pair_seconds=dict(gen=gen_s, fsdp=full_s, resume=resumed_s),
         checks=checks, generation=numbers,
-        generation_ranks={k: [{f: r[f] for f in (
-            "coords", "seconds_per_request", "seconds_with_exchanges_timed",
-            "launches", "exchanges")} for r in rows]
-            for k, rows in gen_rows.items()},
+        generation_ranks=_generation_ranks(gen_rows),
         phase4_seconds_per_clip=report.get("pipeline", {}).get(
             "seconds_per_clip"),
         fsdp=dict(losses=zero["losses"], phase11_losses=phase11,
@@ -3626,11 +3760,7 @@ def phase_parallel_gen_fsdp(report):
     report["parallel_gen_fsdp"] = out
     log(f"  phase {seconds:.1f} s (one-process references {ref_s:.1f} s, "
         f"pairs {gen_s:.1f} + {full_s:.1f} + {resumed_s:.1f} s)")
-    for k, rows in out["generation_ranks"].items():
-        log(f"  {k}: per rank {[(r['coords'], round(r['seconds_per_request'], 3), r['launches']) for r in rows]}"
-            f"; frame exchanges (calls, s, bytes) on rank 0 "
-            f"{ {n: [v[0], round(v[1], 4), v[2]] for n, v in rows[0]['exchanges'].items()} }"
-            f" in a request of {round(rows[0]['seconds_with_exchanges_timed'], 3)} s")
+    _log_generation(out["generation_ranks"])
     log(f"  generation gates' numbers {numbers}; phase 4's seconds per "
         f"clip {out['phase4_seconds_per_clip']}")
     f12 = out["fsdp"]
@@ -3645,10 +3775,7 @@ def phase_parallel_gen_fsdp(report):
         f"{[b / 2**30 for b in (f12['phase11_peak_bytes'] or [])]}; by step"
         f" and save {f12['peaks']}; resumed runs' peaks (GiB) "
         f"{ {n: [b / 2**30 for b in v] for n, v in f12['resumed_peak_bytes'].items()} }")
-    for step, kinds in f12["comms"].items():
-        log(f"    rank 0 {step}: " + "; ".join(
-            f"{kind} x{v[0]} {v[1]:.3f} s {v[2] / 2**30:.3f} GiB"
-            for kind, v in kinds.items()))
+    _log_comms(f12["comms"])
     log(f"  gates: {checks}; launches {launches}")
     if not all(checks.values()):
         fail(f"phase 12: {[k for k, v in checks.items() if not v]}")
@@ -3886,6 +4013,238 @@ def phase_remat(report):
     return total
 
 
+# ------------------------------------------------------------ phase 14 ---
+
+CARD_RANKS = 4
+# phase 14's generation meshes: (seq size, clips); data = CARD_RANKS // seq
+CARD_GEN_CASES = {"data4": (1, 4), "seq4": (4, 1), "data2_seq2": (2, 2)}
+# phase 14's animation_train runs, name -> fsdp size: three from scratch in
+# one group, then a fresh group resuming fsdp4's checkpoint-2
+CARD_TRAIN_RUNS = {"data4": 1, "fsdp4": 4, "data2_fsdp2": 2}
+CARD_RESUMES = {"resume4": 4, "resume1": 1}
+
+
+def _run_part(name, fsdp):
+    return (name, lambda mesh, spec, tmp: _fsdp_run(mesh, name, spec, fsdp))
+
+
+RANK_JOBS.update({
+    "cards_gen": (("generation", rank_generation),),
+    "cards_train": (("gathers", rank_gathers),)
+    + tuple(_run_part(n, f) for n, f in CARD_TRAIN_RUNS.items())
+    + (("sync_steps", rank_sync_steps), ("sync", rank_sync)),
+    "cards_resume": tuple(_run_part(n, f) for n, f in CARD_RESUMES.items())})
+
+
+def _cards_checks(gen, train, resumed):
+    """Phase 14's gates on the ranks' layout, the training runs, the
+    resumes and the classifier (the generation gates are _gen_checks')."""
+    files = {"extra.json", "modules/unet.pt", "modules/audio_encoder.pt",
+             "modules_config.json", "state.pt"}
+    want_written = sorted(f"ckpts/checkpoint-2/{n}" for n in files)
+    cards = [f"cuda:{i}" for i in range(CARD_RANKS)]
+
+    def close(a, b):
+        return abs(a - b) <= 1e-6 * abs(b)
+    checks = {
+        f"every rank on NCCL, cards {cards[0]}-{cards[-1]} one a rank": all(
+            [r["device"] for r in job] == cards
+            and all(r["backend"] == "nccl" and r["nccl"]
+                    and r["current_device"] == i
+                    and r["device_count"] >= CARD_RANKS
+                    for i, r in enumerate(job))
+            for job in (gen, train, resumed))}
+    data4 = train[0]["data4"]["losses"]
+    for name, fsdp in CARD_TRAIN_RUNS.items():
+        runs = [r[name] for r in train]
+        zero = runs[0]
+        checks[f"{name}: 3 steps, losses equal on every rank"] = all(
+            r["step"] == 3 and r["losses"] == zero["losses"] for r in runs
+        ) and len(zero["losses"]) == 3
+        checks[f"{name}: replicas bit-equal after every step"] = all(
+            r["replicas_equal"] == [True] * 3 for r in runs)
+        checks[f"{name}: checkpoint-2 by rank 0 alone"] = (
+            sorted(zero["written"]) == want_written
+            and all(r["written"] == [] for r in runs[1:]))
+        if fsdp > 1:
+            checks[f"{name}: parameters split"] = zero["split_parameters"] > 0
+            checks[f"{name}: losses within 1e-6 relative of data 4's"] = \
+                all(close(a, b) for a, b in zip(zero["losses"], data4))
+    fsdp4 = train[0]["fsdp4"]["losses"]
+    for name, fsdp in CARD_RESUMES.items():
+        runs = [r[name] for r in resumed]
+        checks[f"{name}: from checkpoint-2 to 3 at fsdp {fsdp}"] = all(
+            r["resumed_from"] == 2 and r["step"] == 3 and r["fsdp"] == fsdp
+            and r["written"] == [] and r["replicas_equal"] == [True]
+            for r in runs)
+        checks[f"{name}: step-3 loss within 1e-6 relative of fsdp 4's"] = \
+            all(len(r["losses"]) == 1 and close(r["losses"][0], fsdp4[2])
+                for r in runs)
+    sync64 = train[0]["sync_steps"]["float64"]
+    checks.update({
+        "host gathers exact (the gloo host group beside NCCL)": all(
+            r["gathers"]["exact"] for r in train),
+        "classifier fp64: gradients and running statistics within 1e-4 "
+        "relative L2 of one process": (sync64["grad_rel_l2"] <= 1e-4
+                                       and sync64["stats_rel_l2"] <= 1e-4),
+        "classifier fp64: replicas equal": all(
+            r["sync_steps"]["float64"]["grads_equal"]
+            and r["sync_steps"]["float64"]["stats_equal"] for r in train),
+        "avsync_train: replicas (and statistics) equal after each step": all(
+            r["sync"]["replicas_equal"] == [True, True] for r in train),
+        "avsync_train: evaluate is the ranks' batch-weighted mean": all(
+            r["sync"]["evaluate_matches"] and r["sync"]["evaluated"] == 1
+            for r in train),
+        "avsync_train: metrics equal on every rank": all(
+            r["sync"]["metrics"] == train[0]["sync"]["metrics"]
+            for r in train) and all(math.isfinite(v) for m in train[0][
+                "sync"]["metrics"] for v in m.values())})
+    return checks
+
+
+def _gib(b):
+    return None if b is None else round(b / 2 ** 30, 3)
+
+
+def phase_cards(report):
+    """Phase 14: the meshes of phases 11 and 12 on CARD_RANKS cards, one a
+    rank, over NCCL (the ranks see every card; multihost.local_layout
+    gives rank r NCCL and cuda:r).  One process's generation references
+    first, on the first card; then one group generates at data 4, seq 4
+    and data 2 x seq 2 in bf16 and fp32 (phase 12's gates); one runs
+    animation_train for 3 steps at data 4, fsdp 4 and data 2 x fsdp 2,
+    the fp64 classifier step against one process and avsync_train +
+    evaluate; a fresh group resumes fsdp 4's checkpoint-2 at fsdp 4 and at
+    fsdp 1.  Returns the launches of generation and of training, summed
+    over the ranks."""
+    import torch
+    count = torch.cuda.device_count()
+    if count < CARD_RANKS:
+        fail(f"phase 14 needs {CARD_RANKS} visible CUDA cards; this machine "
+             f"shows {count}")
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    refs = _one_process_references(CARD_GEN_CASES)
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_phase
+    os.environ["WANDB_MODE"] = "disabled"
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = {"gen_cases": CARD_GEN_CASES, "sync_dtypes": ["float64"],
+                "one_card": True,
+                "drop_ckpts": [n for n in CARD_TRAIN_RUNS if n != "fsdp4"],
+                **_animation_yamls(tmp, list(CARD_TRAIN_RUNS)
+                                   + list(CARD_RESUMES))}
+
+        def edit_sync(raw):
+            raw["exp"]["output_dir"] = os.path.join(tmp, "sync")
+        spec["sync"] = _job_yaml(SYNC_YAML, tmp, "sync_cards", edit_sync)
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        gen, gen_s = _run_ranks("cards_gen", tmp, 14, CARD_RANKS)
+        checks, numbers = _gen_checks(tmp, refs, gen, CARD_GEN_CASES)
+        train, train_s = _run_ranks("cards_train", tmp, 14, CARD_RANKS)
+        for name in CARD_RESUMES:
+            ckpts = os.path.join(tmp, name, "ckpts")
+            os.makedirs(ckpts)
+            os.symlink(os.path.join(tmp, "fsdp4", "ckpts", "checkpoint-2"),
+                       os.path.join(ckpts, "checkpoint-2"))
+        resumed, resumed_s = _run_ranks("cards_resume", tmp, 14, CARD_RANKS)
+    checks.update(_cards_checks(gen, train, resumed))
+    seconds = time.perf_counter() - t_phase
+    gen_rows = {f"{c}_{d}": [r["generation"][f"{c}_{d}"] for r in gen]
+                for c in CARD_GEN_CASES for d in ("bfloat16", "float32")}
+    runs = list(CARD_TRAIN_RUNS) + list(CARD_RESUMES)
+    by_run = {n: [r[n] for r in (train if n in CARD_TRAIN_RUNS else resumed)]
+              for n in runs}
+    launches = {
+        "generation": {k: sum(r["launches_all"][k] for rows in
+                              gen_rows.values() for r in rows)
+                       for k in gen_rows["data4_bfloat16"][0][
+                           "launches_all"]},
+        "training": {k: sum(r["launches"][k] for n in runs
+                            for r in by_run[n])
+                     for k in train[0]["data4"]["launches"]}}
+    fsdp4, data4 = by_run["fsdp4"][0]["losses"], by_run["data4"][0]["losses"]
+    phase11 = report.get("ranks", {}).get("animation", {})
+    phase12 = report.get("parallel_gen_fsdp", {})
+    out = dict(
+        seconds=seconds, reference_seconds=ref_s,
+        group_seconds=dict(gen=gen_s, train=train_s, resume=resumed_s),
+        ranks={job: [{k: r[k] for k in ("rank", "backend", "device",
+                                          "current_device", "nccl")}
+                     for r in rows]
+               for job, rows in (("gen", gen), ("train", train),
+                                 ("resume", resumed))},
+        checks=checks, generation=numbers,
+        generation_ranks=_generation_ranks(gen_rows),
+        one_card_seconds_per_request={
+            d: [round(r["generation"][f"one_card_{d}"], 3) for r in gen]
+            for d in ("bfloat16", "float32")},
+        training={n: dict(
+            fsdp=rows[0]["fsdp"], losses=rows[0]["losses"],
+            split_parameters=[rows[0]["split_parameters"],
+                              rows[0]["parameters"]],
+            seconds_per_step=[r["seconds_per_step"] for r in rows],
+            save_seconds=rows[0]["save_seconds"],
+            peak_bytes=[r["peak"] for r in rows], peaks=rows[0]["peaks"],
+            comms=rows[0]["comms"]) for n, rows in by_run.items()},
+        fsdp_losses_bit_equal_to_data4={
+            n: by_run[n][0]["losses"] == data4 for n in CARD_TRAIN_RUNS},
+        resumes_bit_equal_to_fsdp4={
+            n: by_run[n][0]["losses"] == fsdp4[2:] for n in CARD_RESUMES},
+        classifier=train[0]["sync_steps"]["float64"],
+        sync=dict(metrics=train[0]["sync"]["metrics"],
+                  evaluate=train[0]["sync"]["evaluate"],
+                  seconds_after_first_step=[
+                      r["sync"]["seconds_after_first_step"] for r in train]),
+        gloo_one_card=dict(
+            phase11_seconds_per_step=phase11.get("seconds_per_step"),
+            phase11_allreduce_seconds=phase11.get("allreduce_seconds"),
+            phase12_fsdp2_seconds_per_step=phase12.get("fsdp", {}).get(
+                "seconds_per_step"),
+            phase4_seconds_per_clip=report.get("pipeline", {}).get(
+                "seconds_per_clip")),
+        launches=launches)
+    report["cards"] = out
+    log(f"  phase {seconds:.1f} s (one-process references {ref_s:.1f} s, "
+        f"groups {gen_s:.1f} + {train_s:.1f} + {resumed_s:.1f} s)")
+    for job, rows in out["ranks"].items():
+        log(f"  {job} ranks (rank, backend, device, current card, NCCL): "
+            f"{[tuple(r.values()) for r in rows]}")
+    _log_generation(out["generation_ranks"])
+    log(f"  one clip's request without a mesh, each rank on its own card "
+        f"(s): {out['one_card_seconds_per_request']}")
+    log(f"  generation gates' numbers {numbers}")
+    for n, t in out["training"].items():
+        log(f"  {n} (fsdp {t['fsdp']}): losses {t['losses']!r}; seconds per "
+            f"step after the first {t['seconds_per_step']} (saves "
+            f"{t['save_seconds']} s excluded); peak per rank "
+            f"(GiB) {[_gib(b) for b in t['peak_bytes']]}; "
+            f"{t['split_parameters'][0]} of {t['split_parameters'][1]} "
+            "parameters split")
+        _log_comms(t["comms"])
+    log(f"  losses bit-equal to data 4's: "
+        f"{out['fsdp_losses_bit_equal_to_data4']}; resumed step-3 losses "
+        f"bit-equal to fsdp 4's: {out['resumes_bit_equal_to_fsdp4']}")
+    c = out["classifier"]
+    log(f"  classifier fp64, 1 item a rank vs one process on "
+        f"{CARD_RANKS}: gradients {c['grad_rel_l2']:.3e}, running statistics"
+        f" {c['stats_rel_l2']:.3e}; avsync_train: metrics "
+        f"{out['sync']['metrics']}; evaluate {out['sync']['evaluate']}; "
+        f"seconds after the first step "
+        f"{out['sync']['seconds_after_first_step']}")
+    log(f"  on one card over gloo: {out['gloo_one_card']}")
+    log(f"  gates: {checks}; launches {launches}")
+    if not all(checks.values()):
+        fail(f"phase 14: {[k for k, v in checks.items() if not v]}")
+    gl, tl = launches["generation"], launches["training"]
+    if not (gl["B2"] > 0 and gl["B3"] > 0 and gl["B1"] == 0
+            and tl["B1"] > 0 and tl["B3"] > 0 and tl["B4"] > 0
+            and tl["B5"] > 0 and tl["B2"] == 0 and tl["B6"] == 0):
+        fail(f"phase 14 launches: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3894,9 +4253,15 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from asva_tpu_torch.ops import cuda_build  # fails outside the repo
-    if RANK_FLAG in sys.argv[1:]:       # one rank of phase 11 or 12
+    if RANK_FLAG in sys.argv[1:]:       # one rank of phase 11, 12 or 14
         at = sys.argv.index(RANK_FLAG)
         return rank_worker(sys.argv[at + 1], sys.argv[at + 2])
+    cards = torch.cuda.device_count()
+    if "--cards-only" in sys.argv[1:] and cards < CARD_RANKS:
+        print(f"chip_smoke: --cards-only runs phase 14, which needs "
+              f"{CARD_RANKS} visible CUDA cards; this machine shows {cards}",
+              file=sys.stderr)
+        return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3977,6 +4342,18 @@ def main() -> int:
             json.dump(report, f, indent=1)
         print(card)
         return 0
+    if "--cards-only" in sys.argv[1:]:
+        log(f"phase 14 alone: the meshes across {CARD_RANKS} cards over NCCL"
+            f" on {smi}")
+        p14 = phase_cards(report)
+        with open(os.path.join(out_dir, "chip_smoke_cards.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        print(json.dumps({"phase14_launches": p14}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": cards}}))
+        return 0
 
     log("phase 2: kernels vs plain")
     rows = phase_kernels(report)
@@ -4006,6 +4383,15 @@ def main() -> int:
     p12 = phase_parallel_gen_fsdp(report)
     log("phase 13: the remat policies")
     remat_counts = phase_remat(report)
+    p14 = None
+    if cards >= CARD_RANKS:
+        log(f"phase 14: the meshes across {CARD_RANKS} cards over NCCL")
+        p14 = phase_cards(report)
+    else:
+        log(f"phase 14: not run: it needs {CARD_RANKS} visible CUDA cards "
+            f"and this machine shows {cards}; on a machine with "
+            f"{CARD_RANKS}, `python3 chip_smoke.py --cards-only` runs it "
+            "(or this script runs it after phase 13)")
 
     # launches on each driven path: B1 and B3 run in generation and training
     by_path = {
@@ -4040,6 +4426,15 @@ def main() -> int:
         by_path[key][f"animation_train fsdp 2, {RANKS} ranks, 3 + 2 x 1 "
                      "steps"] = p12["fsdp"][key]
         by_path[key][remat_path] = remat_counts[key]
+    p14_paths = {"generation": f"generation, {CARD_RANKS} cards at data 4, "
+                               "seq 4 and data 2 x seq 2",
+                 "training": f"animation_train, {CARD_RANKS} cards at data "
+                             "4, fsdp 4, data 2 x fsdp 2, 3 + 2 x 1 steps"}
+    for path, keys in (("generation", ("B2", "B3")),
+                       ("training", ("B1", "B3", "B4", "B5"))):
+        for key in keys:
+            if p14 is not None:
+                by_path[key][p14_paths[path]] = p14[path][key]
     for form in ("q", "out", "ff1", "ff2"):
         key = f"KG.{form}"
         by_path[key] = {"unet fuse_blocks=False": b1_counts[key],
@@ -4059,6 +4454,9 @@ def main() -> int:
                         f"animation_train fsdp 2, {RANKS} ranks, 3 + 2 x 1 "
                         "steps": p12["fsdp"][key],
                         remat_path: remat_counts[key]}
+        if p14 is not None:
+            for path, name in p14_paths.items():
+                by_path[key][name] = p14[path][key]
     kernels = []
     for name, (replaces, tpu, sources) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name
