@@ -19,9 +19,13 @@ torch_to_jax.py also accept (their later candidates): the raw
 the audio stem as `rgbt_stem` or `audio_stem`), pytorch-fid's InceptionV3
 with its classifier, and the stylegan-v TorchScript I3D's branch names.
 `to_port_keys` renames such a state dict into the port's key space through
-one alias table per space (`SOURCE_SPACES`) and `load_source_state` loads
-it strictly.  `detect_bn_eps` / `extract_state_and_eps` read a TorchScript
-blob (the port's copy of asva_tpu/convert/torchscript.py).
+one alias table per space (`SOURCE_SPACES`), `from_port_keys` renames the
+port's keys back into a space's published names, `load_report` says whether
+a state dict fits a module (the keys converted, missing, allowed to be
+missing, unexpected, dropped by the space, and the shape mismatches)
+without loading anything, and `load_source_state` loads it strictly on
+that report's decision.  `detect_bn_eps` / `extract_state_and_eps` read a
+TorchScript blob (the port's copy of asva_tpu/convert/torchscript.py).
 
 The networks with BatchNorm (AVSync classifier, I3D, InceptionV3) keep
 their running statistics in flax's `batch_stats` collection, outside
@@ -38,6 +42,7 @@ An optax AdamW state exported the same way loads into the port's optimizer
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from typing import Dict, Optional, Tuple
 
@@ -184,6 +189,10 @@ def _i3d_key(key):
 # space -> (key rename or None to drop, whole-state fix, keys that may be
 # missing after the rename: a layer the reference initialises fresh)
 SOURCE_SPACES = {
+    # the HF CLIPTextModel file of SD1.5: position_ids is an index buffer,
+    # not a weight (asva_tpu's gate allows it unused)
+    "clip_text": (lambda k: None if k.endswith("embeddings.position_ids")
+                  else k, None, ()),
     # asva_tpu/convert/torch_to_jax.py:233-296 (the audio export or the raw
     # imagebind_huge.pth; the segment tower's final_layer_norm is fresh)
     "imagebind_audio": (_audio_key, None, ("final_layer_norm.",)),
@@ -215,21 +224,120 @@ def to_port_keys(state: Dict, space: str) -> Tuple[Dict, tuple]:
     return (fix(out) if fix else out), may_miss
 
 
+def _to_raw_audio(key):
+    for part, prefix in _AUDIO_EXPORT.items():
+        if key.startswith(prefix):
+            return f"modality_{part}.audio." + key[len(prefix):]
+    return key
+
+
+# space -> the rename of the port's keys into the space's published names
+# (the first candidate of asva_tpu's key map, as its export writes them);
+# the other spaces already name their tensors as the port does
+_EXPORT_RENAMES = {"imagebind_audio": _to_raw_audio}
+
+
+def from_port_keys(state: Dict, space: str) -> Dict:
+    """The inverse of `to_port_keys`: the port's state dict under the
+    published names of `space` (the raw imagebind_huge.pth's
+    `modality_*.audio.` prefixes for the audio tower; pytorch-fid's,
+    pytorch-i3d's, the raw file's vision and text names and HF CLIP's are
+    the port's own).  Keys outside the space's tensors (the segment
+    tower's final_layer_norm) keep their names, so that
+    to_port_keys(from_port_keys(s, space), space) == s; a writer of the raw
+    file leaves them out, as the published file has none."""
+    if space not in SOURCE_SPACES:
+        raise KeyError(f"unknown key space {space!r}")
+    rename = _EXPORT_RENAMES.get(space, lambda k: k)
+    return {rename(k): v for k, v in state.items()}
+
+
+@dataclasses.dataclass
+class LoadReport:
+    """Whether a state dict fits a module, decided once for the loaders
+    and the weights gate.  Keys are the port's (after the space's rename)
+    except `dropped`, the file's keys the space's alias table drops (other
+    modalities of imagebind_huge.pth, pytorch-fid's classifier, CLIP's
+    position_ids).  `missing` holds the module's keys the state lacks that
+    may not be missing; `missing_allowed` those that may (the space's
+    prefixes, or with `graft` every `_temp`/`_audio` key at once);
+    BatchNorm's num_batches_tracked counters are never required.
+    `mismatched`: (key, the file's shape, the module's) where even
+    `_adapt` cannot make them agree.  `state` is the renamed state dict,
+    ready for `load_exported`."""
+    converted: list
+    missing: list
+    missing_allowed: list
+    unexpected: list
+    dropped: list
+    mismatched: list
+    state: dict
+
+    def counts(self) -> str:
+        return (f"{len(self.converted)} converted, "
+                f"{len(self.missing) + len(self.missing_allowed)} fresh, "
+                f"{len(self.unexpected) + len(self.dropped)} unused, "
+                f"{len(self.mismatched)} mismatched")
+
+
+def graft_keys(keys) -> set:
+    """The temporal and audio layers' keys among `keys`: what a 2D SD1.5
+    UNet file lacks (the `from_pretrained_2d` graft)."""
+    from .training.optim import TRAINABLE_SEGMENTS
+    return {k for k in keys if TRAINABLE_SEGMENTS & set(k.split("."))}
+
+
+def load_report(module: nn.Module, state: Dict, space: Optional[str] = None,
+                graft: bool = False) -> LoadReport:
+    """What loading `state` (in the key space `space`, or the port's own)
+    into `module` would do, without loading or raising (see LoadReport).
+    `graft`: the `_temp`/`_audio` keys may be missing, all of them or
+    none."""
+    allowed, dropped = (), []
+    if space is not None:
+        rename = SOURCE_SPACES[space][0]
+        dropped = sorted(k for k in state if rename(k) is None)
+        state, allowed = to_port_keys(state, space)
+    own = module.state_dict()
+    missing = sorted(k for k in own if k not in state
+                     and not k.endswith(".num_batches_tracked"))
+    free = {k for k in missing if k.startswith(allowed)}
+    grafted = graft_keys(own) if graft else set()
+    if grafted and grafted <= set(missing):
+        free |= grafted
+    mismatched, converted = [], []
+    for key, value in state.items():
+        target = own.get(key)
+        if target is None:
+            continue
+        shape = tuple(target.shape)
+        got = tuple((value if torch.is_tensor(value)
+                     else torch.as_tensor(np.asarray(value))).shape)
+        if got != shape and tuple(_adapt(torch.empty(got, device="meta"),
+                                         shape).shape) != shape:
+            mismatched.append((key, got, shape))
+        else:
+            converted.append(key)
+    return LoadReport(
+        converted=sorted(converted),
+        missing=[k for k in missing if k not in free],
+        missing_allowed=[k for k in missing if k in free],
+        unexpected=sorted(set(state) - set(own)), dropped=dropped,
+        mismatched=mismatched, state=state)
+
+
 def load_source_state(module: nn.Module, state: Dict,
                       space: str) -> nn.Module:
     """Rename `state` from `space` into the port's keys, adapt shapes and
     load it strictly: an unexpected key, or a missing one outside the
     space's prefixes that may be missing, raises KeyError."""
-    state, allowed = to_port_keys(state, space)
-    own = {k for k in module.state_dict()
-           if not k.endswith(".num_batches_tracked")}
-    missing = sorted(own - set(state))
-    unexpected = sorted(set(state) - set(module.state_dict()))
-    bad = [k for k in missing if not k.startswith(allowed)]
-    if unexpected or bad:
+    report = load_report(module, state, space)
+    if report.unexpected or report.missing:
         raise KeyError(f"{space}: the state does not fit the module: "
-                       f"missing {bad[:8]}, unexpected {unexpected[:8]}")
-    return load_exported(module, state, strict=not missing)
+                       f"missing {report.missing[:8]}, unexpected "
+                       f"{report.unexpected[:8]}")
+    return load_exported(module, report.state,
+                         strict=not report.missing_allowed)
 
 
 # ---------------------------------------------------------------------------

@@ -31,7 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from .convert import load_exported, load_source_state, to_port_keys
+from .convert import (load_exported, load_report, load_source_state,
+                      to_port_keys)
 from .diffusion.schedules import DiffusionSchedule
 from .models.avsync import AVSyncClassifier
 from .models.clip_text import CLIPTextConfig, CLIPTextModel
@@ -40,7 +41,6 @@ from .models.imagebind_audio import ImageBindAudioConfig, SegmaskAudioEncoder
 from .models.unet3d import AudioUNet3D, UNet3DConfig
 from .models.vae import AutoencoderKL, VAEConfig
 from .pipelines.animation import AnimationPipeline
-from .training.optim import TRAINABLE_SEGMENTS
 
 log = logging.getLogger("asva_tpu_torch")
 
@@ -209,13 +209,6 @@ def resolve_weights(weights_dir: str) -> Optional[str]:
     return path
 
 
-def _graft_keys(module: nn.Module):
-    """State-dict keys of the temporal and audio layers, which a 2D SD1.5
-    UNet file does not have."""
-    return {k for k in module.state_dict()
-            if TRAINABLE_SEGMENTS & set(k.split("."))}
-
-
 def load_weights(module: nn.Module, weights_dir: str, label: str,
                  graft: bool = False, space: Optional[str] = None) -> None:
     """Load the weights that `weights_dir` names into `module`, strictly.
@@ -237,17 +230,17 @@ def load_weights(module: nn.Module, weights_dir: str, label: str,
         return
     strict = True
     if graft:
-        own = set(module.state_dict())
-        missing, unexpected = own - set(state), set(state) - own
-        if unexpected or (missing and missing != _graft_keys(module)):
+        report = load_report(module, state, graft=True)
+        if report.unexpected or report.missing:
             raise RuntimeError(
                 f"{label}: {path} is neither the whole module nor its 2D "
-                f"part: missing {sorted(missing)[:8]}, unexpected "
-                f"{sorted(unexpected)[:8]}")
-        strict = not missing
-        if missing:
+                f"part: missing "
+                f"{sorted(report.missing + report.missing_allowed)[:8]}, "
+                f"unexpected {report.unexpected[:8]}")
+        strict = not report.missing_allowed
+        if report.missing_allowed:
             log.info("%s: 2D weights from %s; %d temporal/audio tensors keep "
-                     "their init", label, path, len(missing))
+                     "their init", label, path, len(report.missing_allowed))
     load_exported(module, state, strict=strict)
     log.info("%s: loaded %s", label, path)
 

@@ -7,9 +7,10 @@
     python3 chip_smoke.py --ranks-only  # build + phases 11 and 12 alone
     python3 chip_smoke.py --remat-only  # build + phase 13 alone
     python3 chip_smoke.py --cards-only  # build + phase 14 alone (4 cards)
+    python3 chip_smoke.py --weights-only  # build + phase 15 alone
 
-With four visible cards the default run ends with phase 14; with fewer it
-says that phase 14 was not run and why.
+With four visible cards the default run ends with phase 14 (after phase
+15); with fewer it says that phase 14 was not run and why.
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. build    — nvcc the kernels in asva_tpu_torch/csrc (one process per
@@ -272,6 +273,31 @@ Phases, in order; any failure exits non-zero and prints no result:
                 group that multihost makes beside NCCL.  A fresh group resumes fsdp 4's checkpoint-2 at fsdp 4
                 and at fsdp 1: each step-3 loss within 1e-6 relative of the
                 uninterrupted run's.
+ 15. weights  — the real-weights path at full size from files:
+                asva_tpu_torch.tools.fabricate writes every published
+                artifact (SD1.5 UNet 2D part, VAE and text encoder, a
+                trained AVSyncD checkpoint, imagebind_huge.pth, the FID and
+                I3D blobs (TorchScript, BatchNorm eps 1e-3), the classifier,
+                AVID-CMA, the null text encoding: about 14 GB of fp32) from
+                seeded modules into a temporary directory (bytes and
+                seconds printed); tools.validate_weights runs in-process on
+                the card: all 13 checks must PASS and the I3D eps read out
+                of the blob must be 1e-3.  load_animation_pipeline from the
+                checkpoint in bf16 answers phase 4's first request: its
+                frames torch.equal to the same request through the seeded
+                fp32 modules the files were written from, cast to bf16, and
+                B2 = B3 = 80 (each module's load seconds, the time to the
+                first clip and the peak printed).  load_animation_pipeline
+                from sd_root alone is the 2D graft: every 2D tensor equal to
+                the file's, every _temp/_audio one at its seeded init; then
+                animation_train.train takes one step on the AVSync15 YAML
+                with its pretrained paths at the tree (ChipClips items):
+                finite loss, every frozen tensor still the file's (in
+                bf16).  animation_eval.build_eval_models with all five
+                metric flags and the tree's pretrained root: no random net,
+                the blob's eps, and the fp32 features of the request's clip
+                (FID, FVD, AVSync score, IA, IT) torch.equal to those of the
+                seeded nets the files were written from.
 Launch counters are zeroed just before each path run and read just after
 (in each rank for phases 11, 12 and 14).
 
@@ -4245,6 +4271,293 @@ def phase_cards(report):
     return launches
 
 
+# ------------------------------------------------------------ phase 15 ---
+
+WEIGHTS_SEED = 0       # fabricate's seed for the full-size tree
+
+
+@contextlib.contextmanager
+def _timed_builds(seconds):
+    """Record the seconds of each module build (and its load from files)
+    inside load_animation_pipeline, the card synchronised after each."""
+    from asva_tpu_torch import runtime
+    names = {"build_unet": "unet", "build_vae": "vae",
+             "build_audio_encoder": "audio_encoder",
+             "load_null_text_encoding": "null_text_encoding"}
+    saved = {n: getattr(runtime, n) for n in names}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            _sync()
+            seconds[names[name]] = time.perf_counter() - t0
+            return out
+        return call
+    for n, fn in saved.items():
+        setattr(runtime, n, timed(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(runtime, n, fn)
+
+
+def _request15(pipe, size=256):
+    """Phase 4's first request (seed 101: a 256x256 image, 2 s of audio,
+    77 text tokens; DDIM 5, audio guidance 4.0) through `pipe`."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(101)
+    image = torch.rand((1, size, size, 3), generator=g, device=DEVICE)
+    wave = torch.randn((1, 32000), generator=g, device=DEVICE) * 0.1
+    text = torch.randn((1, TEXT_TOKENS, 768), generator=g, device=DEVICE)
+    mels = pipe.encode_audio_waveform([wave])
+    video = pipe(image, mels, text, video_length=F, num_inference_steps=5,
+                 sampler="ddim", audio_guidance_scale=4.0,
+                 text_guidance_scale=1.0,
+                 generator=torch.Generator(device=DEVICE).manual_seed(101))
+    _sync()
+    return video, mels
+
+
+def _features15(models, video, mels, ids):
+    """Every feature the metric bundle computes on one clip, in fp32."""
+    from asva_tpu_torch.data.transforms import (clip_frame_transform,
+                                                fid_frame_transform,
+                                                fvd_frame_transform)
+    f = video.shape[1]
+    frames = clip_frame_transform(video).flatten(0, 1)
+    return {"fid": models.fid_features(fid_frame_transform(video)
+                                       .flatten(0, 1)),
+            "fvd": models.fvd_features(fvd_frame_transform(video)),
+            "avsync": models.avsync_score(mels, clip_frame_transform(video)),
+            "ia": models.ia_sim(frames, mels.repeat_interleave(f, dim=0)),
+            "it": models.it_sim(frames, ids.repeat_interleave(f, dim=0))}
+
+
+def phase_weights(report):
+    """Phase 15: the real-weights path at full size from files that
+    asva_tpu_torch.tools.fabricate writes in the published formats.  Returns
+    {"request": launches of the request from files, "train": launches of
+    the training step from the graft}."""
+    import dataclasses
+
+    import torch
+    from asva_tpu_torch.config import AnimationJobConfig
+    from asva_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from asva_tpu_torch.eval.harness import eval_models_from_nets
+    from asva_tpu_torch.pipelines.animation import AnimationPipeline
+    from asva_tpu_torch.runtime import build_unet, load_animation_pipeline
+    from asva_tpu_torch.scripts import animation_eval, animation_train
+    from asva_tpu_torch.tools import fabricate as fab
+    from asva_tpu_torch.tools import validate_weights
+    from asva_tpu_torch.training.optim import TRAINABLE_SEGMENTS
+    os.environ["WANDB_MODE"] = "disabled"
+    cudnn_was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # the clips compare bit for bit
+    cfgs = fab.configs(True)
+    out, checks = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "artifacts")
+        # 1. the tree
+        tree = fab.fabricate(root, full=True, seed=WEIGHTS_SEED,
+                             device=DEVICE)
+        out["fabricate"] = dict(bytes=tree["bytes"],
+                                total_bytes=sum(tree["bytes"].values()),
+                                seconds=tree["seconds"])
+        log(f"  fabricate: {out['fabricate']['total_bytes']} bytes in "
+            f"{tree['seconds']:.1f} s: {tree['bytes']}")
+        mods = tree["checkpoint_modules_dir"]
+        sd = os.path.join(root, fab.SD)
+        null = os.path.join(root, fab.PATHS["null_text_encoding"])
+
+        # 2. the gate, in-process, on the card
+        t0 = time.perf_counter()
+        code, results = validate_weights.run([
+            "--root", root, "--checkpoint_modules_dir", mods,
+            "--avsync_modules_dir", tree["avsync_modules_dir"],
+            "--avid_cma_path", tree["avid_cma_path"], "--device", DEVICE])
+        i3d = next(r for r in results if r["label"] == "fvd_i3d")
+        out["gate"] = dict(code=code, seconds=time.perf_counter() - t0,
+                           results=results)
+        checks["gate_13_pass"] = (code == 0 and len(results) == 13 and all(
+            r["status"] == validate_weights.PASS for r in results))
+        checks["gate_i3d_eps"] = i3d.get("bn_eps") == fab.I3D_EPS
+        log(f"  gate: exit {code} in {out['gate']['seconds']:.1f} s; "
+            f"{sum(r['status'] == 'PASS' for r in results)} of "
+            f"{len(results)} PASS; I3D eps {i3d.get('bn_eps')}")
+
+        # 3. the pipeline from files, bf16: one request, beside the seeded
+        # modules the files were written from, cast as the loader casts
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        load_s = {}
+        t0 = time.perf_counter()
+        with _timed_builds(load_s):
+            pipe = load_animation_pipeline(
+                checkpoint_modules_dir=mods, sd_root=sd,
+                null_text_encoding_path=null, n_segment=cfgs["n_segment"],
+                device=DEVICE, dtype=torch.bfloat16,
+                vae_config=cfgs["vae"])
+            _sync()
+        load_total = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        video, mels = _request15(pipe)
+        first_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        del pipe
+        torch.cuda.empty_cache()
+        ref = AnimationPipeline(
+            **{k: fab.build(k, True, DEVICE, WEIGHTS_SEED, torch.bfloat16)
+               for k in ("unet", "vae", "audio_encoder")},
+            schedule=DiffusionSchedule(),
+            null_text_encoding=fab.build("null_text_encoding", True,
+                                         DEVICE, WEIGHTS_SEED).float()
+            .reshape(1, 77, 768).to(DEVICE))
+        want, _ = _request15(ref)
+        del ref
+        torch.cuda.empty_cache()
+        out["request"] = dict(
+            load_seconds=load_s, load_seconds_total=load_total,
+            first_request_seconds=first_s,
+            time_to_first_clip=load_total + first_s,
+            max_memory_allocated=peak, launches=counts,
+            shape=list(video.shape),
+            max_abs_diff_to_seeded=(video.float() - want.float()).abs()
+            .max().item())
+        checks["clip_equal_to_seeded"] = bool(torch.equal(video, want))
+        checks["clip_finite"] = bool(torch.isfinite(video).all())
+        checks["request_b2_b3_80"] = counts["B2"] == counts["B3"] == 80
+        log(f"  pipeline from files: load seconds {load_s} (sum "
+            f"{load_total:.2f} s); first request {first_s:.2f} s; time to "
+            f"the first clip {load_total + first_s:.2f} s; "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; clip "
+            f"torch.equal to the seeded modules' "
+            f"{checks['clip_equal_to_seeded']}; B2 {counts['B2']} B3 "
+            f"{counts['B3']}")
+
+        # 4. the 2D graft: file tensors in, _temp/_audio at their seeded
+        # init; then the fine-tuner's first step from it
+        flat = torch.load(os.path.join(root, fab.PATHS["sd15_unet"]),
+                          map_location=DEVICE, weights_only=True)
+        t0 = time.perf_counter()
+        graft = load_animation_pipeline(
+            sd_root=sd, n_segment=cfgs["n_segment"], device=DEVICE,
+            dtype=torch.float32, unet_config=cfgs["unet"],
+            vae_config=cfgs["vae"]).unet
+        _sync()
+        graft_s = time.perf_counter() - t0
+        seeded = build_unet(cfgs["unet"], DEVICE, torch.float32, seed=0)
+        own, init = graft.state_dict(), seeded.state_dict()
+        trainable = {k for k in own if TRAINABLE_SEGMENTS & set(k.split("."))}
+        checks["graft_2d_equal_file"] = set(own) - trainable == set(flat) \
+            and all(torch.equal(own[k], flat[k]) for k in flat)
+        checks["graft_temp_audio_seeded"] = bool(trainable) and all(
+            torch.equal(own[k], init[k]) for k in trainable)
+        del graft, seeded, own, init
+        torch.cuda.empty_cache()
+
+        def edit(raw):
+            raw["exp"]["output_dir"] = os.path.join(tmp, "train")
+            raw["model"]["unet"]["pretrained_model_name_or_path"] = sd
+            raw["model"]["vae"]["pretrained_model_name_or_path"] = sd
+            raw["optim"]["checkpointing_steps"] = 1000
+        cfg = AnimationJobConfig.from_yaml(
+            _job_yaml(ANIMATION_YAML, tmp, "weights", edit))
+        cfg = dataclasses.replace(cfg, null_text_encoding_path=null)
+        items = cfg.batch_size * cfg.optim.gradient_accumulation_steps
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        run = animation_train.train(
+            cfg, ChipClips(items, cfg.dataset, cfg.seed), DEVICE, 1)
+        _sync()
+        train_s = time.perf_counter() - t0
+        train_counts = read_counts()
+        unet = run["state"].unet.state_dict()
+        frozen_kept = all(torch.equal(unet[k], flat[k].to(unet[k].dtype))
+                          for k in flat)
+        changed = sum(not torch.equal(unet[k].float(), v)
+                      for k, v in build_unet(
+                          cfgs["unet"], DEVICE, torch.float32, seed=0)
+                      .state_dict().items() if k in trainable)
+        loss = run["losses"][-1]
+        out["train"] = dict(graft_load_seconds=graft_s, loss=loss,
+                            seconds_with_save=train_s,
+                            trainable_changed=changed,
+                            trainable=len(trainable),
+                            max_memory_allocated=
+                            torch.cuda.max_memory_allocated(),
+                            launches=train_counts)
+        checks["train_loss_finite"] = math.isfinite(loss)
+        checks["train_frozen_equal_file"] = frozen_kept
+        checks["train_launches"] = (
+            train_counts["B1"] > 0 and train_counts["B3"] > 0
+            and train_counts["B4"] > 0 and train_counts["B5"] > 0
+            and train_counts["B2"] == 0)
+        del run, unet, flat
+        torch.cuda.empty_cache()
+        log(f"  graft: {graft_s:.1f} s; 2D tensors equal the file's "
+            f"{checks['graft_2d_equal_file']}; {len(trainable)} "
+            f"_temp/_audio tensors at their seeded init "
+            f"{checks['graft_temp_audio_seeded']}; one animation_train step "
+            f"from it: loss {loss!r}, {train_s:.1f} s with the final save, "
+            f"frozen tensors still the file's {frozen_kept}, {changed} of "
+            f"{len(trainable)} trainable tensors changed; launches "
+            f"{train_counts}")
+
+        # 5. the judge from files against the same nets built seeded
+        args = animation_eval.parser().parse_args([
+            "--exp_root", tmp, "--checkpoint", "0", "--pretrained_root",
+            os.path.join(root, "pretrained"), "--avsync_checkpoint",
+            tree["avsync_modules_dir"], "--eval_fid", "--eval_fvd",
+            "--eval_clipsim", "--eval_relsync", "--eval_alignsync",
+            "--device", DEVICE])
+        t0 = time.perf_counter()
+        models = animation_eval.build_eval_models(args)
+        _sync()
+        judge_s = time.perf_counter() - t0
+        ids = _prompt_ids(1501, 6)
+        clip = video.float()
+        got = _features15(models, clip, mels.float(), ids)
+        random_nets, prov = models.random_nets, models.provenance
+        del models
+        nets = {k: fab.build(name, True, DEVICE, WEIGHTS_SEED) for k, name in (
+            ("fid_net", "fid_inception_v3"), ("i3d_net", "fvd_i3d"),
+            ("classifier", "avsync_classifier"),
+            ("vision", "imagebind_vision"), ("audio", "imagebind_audio"),
+            ("text", "imagebind_text"))}
+        want = _features15(eval_models_from_nets(DEVICE, **nets), clip,
+                           mels.float(), ids)
+        del nets
+        out["judge"] = dict(
+            load_seconds=judge_s, random_nets=random_nets,
+            provenance=prov,
+            max_abs_diff={k: (got[k] - want[k]).abs().max().item()
+                          for k in got},
+            finite={k: bool(torch.isfinite(v).all()) for k, v in got.items()})
+        checks["judge_no_random_net"] = random_nets == []
+        checks["judge_i3d_eps"] = prov.get("I3D_BN_EPS") == fab.I3D_EPS
+        checks["judge_features_equal"] = all(torch.equal(got[k], want[k])
+                                             for k in got)
+        checks["judge_finite"] = all(out["judge"]["finite"].values())
+        log(f"  judge from files: {judge_s:.1f} s; random nets "
+            f"{random_nets}; I3D eps {prov.get('I3D_BN_EPS')} "
+            f"({prov.get('I3D_BN_EPS_SOURCE')}); fp32 features equal the "
+            f"seeded nets' {checks['judge_features_equal']} (max |diff| "
+            f"{out['judge']['max_abs_diff']})")
+    torch.backends.cudnn.deterministic = cudnn_was
+    out["checks"] = checks
+    out["card"] = report.get("card")
+    report["weights"] = out
+    log(f"  phase 15 on {report.get('card')}: checks {checks}")
+    if not all(checks.values()):
+        fail(f"phase 15 checks: {checks}")
+    return {"request": counts, "train": train_counts}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4342,6 +4655,17 @@ def main() -> int:
             json.dump(report, f, indent=1)
         print(card)
         return 0
+    if "--weights-only" in sys.argv[1:]:
+        log(f"phase 15 alone: the real-weights path at full size on {card}")
+        p15 = phase_weights(report)
+        with open(os.path.join(out_dir, "chip_smoke_weights.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        print(json.dumps({"phase15_launches": p15}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": cards}}))
+        return 0
     if "--cards-only" in sys.argv[1:]:
         log(f"phase 14 alone: the meshes across {CARD_RANKS} cards over NCCL"
             f" on {smi}")
@@ -4383,6 +4707,8 @@ def main() -> int:
     p12 = phase_parallel_gen_fsdp(report)
     log("phase 13: the remat policies")
     remat_counts = phase_remat(report)
+    log("phase 15: the real-weights path at full size, from files")
+    p15 = phase_weights(report)
     p14 = None
     if cards >= CARD_RANKS:
         log(f"phase 14: the meshes across {CARD_RANKS} cards over NCCL")
@@ -4426,6 +4752,13 @@ def main() -> int:
         by_path[key][f"animation_train fsdp 2, {RANKS} ranks, 3 + 2 x 1 "
                      "steps"] = p12["fsdp"][key]
         by_path[key][remat_path] = remat_counts[key]
+    p15_paths = {"request": "phase 15: a request from the full-size files",
+                 "train": "phase 15: animation_train, 1 step from the SD1.5 "
+                          "graft"}
+    for path, keys in (("request", ("B2", "B3")),
+                       ("train", ("B1", "B3", "B4", "B5"))):
+        for key in keys:
+            by_path[key][p15_paths[path]] = p15[path][key]
     p14_paths = {"generation": f"generation, {CARD_RANKS} cards at data 4, "
                                "seq 4 and data 2 x seq 2",
                  "training": f"animation_train, {CARD_RANKS} cards at data "
@@ -4454,6 +4787,8 @@ def main() -> int:
                         f"animation_train fsdp 2, {RANKS} ranks, 3 + 2 x 1 "
                         "steps": p12["fsdp"][key],
                         remat_path: remat_counts[key]}
+        for path, name in p15_paths.items():
+            by_path[key][name] = p15[path][key]
         if p14 is not None:
             for path, name in p14_paths.items():
                 by_path[key][name] = p14[path][key]

@@ -18,7 +18,7 @@ import torch
 import torch.distributed as dist
 
 from asva_tpu import runtime as jrt
-from asva_tpu_torch import runtime
+from asva_tpu_torch import convert, runtime
 from asva_tpu_torch.diffusion.schedules import DiffusionSchedule
 from asva_tpu_torch.models.imagebind_audio import ImageBindAudioConfig as TAC
 from asva_tpu_torch.models.unet3d import UNet3DConfig as TC
@@ -138,7 +138,7 @@ def test_unet_graft_of_2d_weights(tmp_path):
     the seeded init (zero where the reference zero-inits), the rest holds
     the file; another missing key or an unexpected one raises."""
     source = runtime.build_unet(UNET, **CPU32, seed=8, randomize_all=True)
-    graft = runtime._graft_keys(source)
+    graft = convert.graft_keys(source.state_dict())
     assert graft and all("_temp" in k or "_audio" in k for k in graft)
     state2d = {k: v for k, v in source.state_dict().items() if k not in graft}
     path = str(tmp_path / "unet2d" / "diffusion_pytorch_model.bin")
@@ -193,7 +193,7 @@ def test_pipeline_takes_the_unet_from_sd_root(tmp_path):
     VAE from <sd_root>/vae."""
     src = runtime.build_unet(UNET, **CPU32, seed=9, randomize_all=True)
     state2d = {k: v for k, v in src.state_dict().items()
-               if k not in runtime._graft_keys(src)}
+               if k not in convert.graft_keys(src.state_dict())}
     _save(state2d, str(tmp_path / "unet" / "diffusion_pytorch_model.bin"))
     vae = runtime.build_vae(TVC.tiny(), **CPU32, seed=10, randomize_all=True)
     _save(vae.state_dict(), str(tmp_path / "vae" / "pytorch_model.bin"))
