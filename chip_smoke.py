@@ -8,9 +8,10 @@
     python3 chip_smoke.py --remat-only  # build + phase 13 alone
     python3 chip_smoke.py --cards-only  # build + phase 14 alone (4 cards)
     python3 chip_smoke.py --weights-only  # build + phase 15 alone
+    python3 chip_smoke.py --rect-only  # build + phase 16 alone
 
-With four visible cards the default run ends with phase 14 (after phase
-15); with fewer it says that phase 14 was not run and why.
+With four visible cards the default run ends with phase 14 (after phases
+15 and 16); with fewer it says that phase 14 was not run and why.
 
 Phases, in order; any failure exits non-zero and prints no result:
   1. build    — nvcc the kernels in asva_tpu_torch/csrc (one process per
@@ -298,6 +299,42 @@ Phases, in order; any failure exits non-zero and prints no result:
                 the blob's eps, and the fp32 features of the request's clip
                 (FID, FVD, AVSync score, IA, IT) torch.equal to those of the
                 seeded nets the files were written from.
+ 16. rect     — TheGreatestHits' rectangular configuration (128x256
+                frames; configs/audio-cond_animation/
+                thegreatesthits_audio-cond_cfg.yaml and
+                scripts/animation_test_thegreatesthits.sh) at full width:
+                (a) B2 and B3 at every latent level of a request (16x32,
+                8x16, 4x8 and the mid block's 2x4: 512, 128, 32 and 8
+                tokens; 3 clips under audio CFG, 6 rows of 12 frames) and
+                B1, B3, B4 and B5 at every level of a training batch of 16
+                (attn1, audio, text), against their plain versions in fp32
+                and bf16 under phase 2's gates and gradient checks (phase
+                2's cases at these levels and batches), the bf16 rows timed
+                beside the SDPA yardstick for B4/B5; (b) the recipe's
+                request: generate_videos from a 4:3 PNG and phase 9's wav
+                at image_size (128, 256), 3 clips batched, PLMS 50, audio
+                guidance 4.0, text guidance 1.0, on seeded full-size
+                weights in bf16 and fp32, each also through the plain
+                sub-layers: clips (3, 12, 128, 256, 3), B2 = B3 = 16 x the
+                UNet calls (51), fp32 within one uint8 level of the plain
+                sub-layers, bf16's relative RMS from the plain fp32 video
+                within 1.5x the plain bf16 version's, seconds per clip and
+                peak memory; (c) animation_train.train on the
+                TheGreatestHits YAML itself (only output_dir, the encoding
+                path and checkpoints every 2 steps replaced: batch 16 of
+                12x128x256, accumulation 1, remat "highres") for 3 steps on
+                in-memory items whose text encoding is the one tensor of a
+                .pt (class_mapping_json ""), then a resume from its
+                checkpoint-2 to 3 equal bit for bit (cuDNN deterministic),
+                and an fp32 batch-1 step at 128x256 against the plain
+                sub-layers (phase 5's gates); the launches of the 3 + 1
+                steps exactly those that the blocks and the remat policy
+                give (B1 = B4 = 78, B3 = 26, B5 = 48 a step at full width);
+                an out-of-memory error at batch 16 fails; (d)
+                evaluate_arrays on the three clips against three seeded
+                128x256 clips with phase 6's five nets (phase 9's metric
+                step and checks): finite metrics, RelSync and AlignSync in
+                [0, 1].
 Launch counters are zeroed just before each path run and read just after
 (in each rank for phases 11, 12 and 14).
 
@@ -466,68 +503,74 @@ def _attn_flops(g, m, sk, c):
     return 4 * g * m * c * c + 4 * g * m * sk * c
 
 
-def kernel_cases(gen, dtype):
+def kernel_cases(gen, dtype, levels=SD_LEVELS, b=B, train_b=TRAIN_B, tag="",
+                 ff_levels=("32x32", "16x16", "8x8"),
+                 b1_levels=(("", ("32x32", "8x8")),
+                            ("train ", ("32x32", "8x8")))):
     """(kernel, label, wrapper, args, plain fn, operations) for B1-B3 at
-    the shapes the driven paths give them at the SD1.5 levels: generation
-    (2 clips; B1, B2, B3) and training (batch 4; B1 and B3, labelled
-    "train")."""
+    the shapes the driven paths give them at `levels` ({level: (tokens,
+    C)}): generation (b clips; B2 at every level, B3 at `ff_levels`) and
+    training (batch train_b; labelled "train"), B1 at the levels that
+    `b1_levels` gives each of the two ((label prefix, levels) pairs).
+    Labels start with `tag`."""
     from asva_tpu_torch.ops import fused
     cases = []
-    for prefix, b in (("", B), ("train ", TRAIN_B)):
-        for level in ("32x32", "16x16", "8x8"):      # FF at C = 320/640/1280
-            n, c = SD_LEVELS[level]
-            args = [_rand(gen, (b * F * n, c), dtype),
+    for prefix, bb in (("", b), ("train ", train_b)):
+        for level in ff_levels:
+            n, c = levels[level]
+            args = [_rand(gen, (bb * F * n, c), dtype),
                     _rand(gen, (c,), dtype, 0.1, 1.0),
                     _rand(gen, (c,), dtype, 0.1),
                     _rand(gen, (8 * c, c), dtype, c ** -0.5),
                     _rand(gen, (8 * c,), dtype, 0.1),
                     _rand(gen, (c, 4 * c), dtype, (4 * c) ** -0.5),
                     _rand(gen, (c,), dtype, 0.1), 1e-5]
-            cases.append(("B3", f"{prefix}ff {level} C={c} M={b * F * n}",
-                          fused.fused_ln_geglu, args, fused.ln_geglu_plain,
-                          24 * b * F * n * c * c))
-        for level in ("32x32", "8x8"):
-            n, c = SD_LEVELS[level]
-            for name, g, m, sk in (("attn1", b, F * n, n),
-                                   ("audio", b * F, n, AUDIO_TOKENS),
-                                   ("text", b, F * n, TEXT_TOKENS)):
+            cases.append(("B3", f"{tag}{prefix}ff {level} C={c} "
+                          f"M={bb * F * n}", fused.fused_ln_geglu, args,
+                          fused.ln_geglu_plain, 24 * bb * F * n * c * c))
+        for level in dict(b1_levels).get(prefix, ()):
+            n, c = levels[level]
+            for name, g, m, sk in (("attn1", bb, F * n, n),
+                                   ("audio", bb * F, n, AUDIO_TOKENS),
+                                   ("text", bb, F * n, TEXT_TOKENS)):
                 args = ([_rand(gen, (g, m, c), dtype)] + _sub(gen, c, dtype)
                         + [_rand(gen, (g, sk, c), dtype),
                            _rand(gen, (g, sk, c), dtype), 1e-5, HEADS])
-                cases.append(("B1", f"{prefix}{name} {level} C={c} G={g} "
-                              f"Sk={sk}", fused.fused_ln_attn, args,
+                cases.append(("B1", f"{tag}{prefix}{name} {level} C={c} "
+                              f"G={g} Sk={sk}", fused.fused_ln_attn, args,
                               fused.ln_attn_plain, _attn_flops(g, m, sk, c)))
-    for level, (n, c) in SD_LEVELS.items():
-        args = [_rand(gen, (B, F, n, c), dtype)]
-        for kv_shape in ((B, n, c), (B, F, AUDIO_TOKENS, c),
-                         (B, TEXT_TOKENS, c)):
+    for level, (n, c) in levels.items():
+        args = [_rand(gen, (b, F, n, c), dtype)]
+        for kv_shape in ((b, n, c), (b, F, AUDIO_TOKENS, c),
+                         (b, TEXT_TOKENS, c)):
             args += _sub(gen, c, dtype) + [_rand(gen, kv_shape, dtype),
                                            _rand(gen, kv_shape, dtype)]
         args += [(1e-5,) * 3, HEADS]
-        flops = (_attn_flops(B, F * n, n, c)
-                 + _attn_flops(B * F, n, AUDIO_TOKENS, c)
-                 + _attn_flops(B, F * n, TEXT_TOKENS, c))
-        cases.append(("B2", f"attn3 {level} C={c}", fused.fused_ln_attn3,
+        flops = (_attn_flops(b, F * n, n, c)
+                 + _attn_flops(b * F, n, AUDIO_TOKENS, c)
+                 + _attn_flops(b, F * n, TEXT_TOKENS, c))
+        cases.append(("B2", f"{tag}attn3 {level} C={c}", fused.fused_ln_attn3,
                       args, fused.ln_attn3_plain, flops))
     return cases
 
 
-def flash_cases(gen, dtype):
+def flash_cases(gen, dtype, levels=SD_LEVELS, train_b=TRAIN_B, tag=""):
     """(kernel, label, wrapper, args, plain fn, operations) for B4 and B5
-    at the training shapes of every SD1.5 level: batch 4 of 12 frames."""
+    at the training shapes of every level of `levels`: batch train_b of 12
+    frames.  Labels start with `tag`."""
     from asva_tpu_torch.ops import fused
     cases = []
-    for level, (n, c) in SD_LEVELS.items():
-        for name, g, m, sk in (("attn1", TRAIN_B, F * n, n),
-                               ("audio", TRAIN_B * F, n, AUDIO_TOKENS),
-                               ("text", TRAIN_B, F * n, TEXT_TOKENS)):
+    for level, (n, c) in levels.items():
+        for name, g, m, sk in (("attn1", train_b, F * n, n),
+                               ("audio", train_b * F, n, AUDIO_TOKENS),
+                               ("text", train_b, F * n, TEXT_TOKENS)):
             scale = 1.0 / math.sqrt(c // HEADS)
             q, k, v, do = (_rand(gen, shape, dtype) for shape in
                            ((g, m, c), (g, sk, c), (g, sk, c), (g, m, c)))
             o, lse = fused.mha_fwd_plain(q, k, v, HEADS, None, scale)
             dd = fused._head_rowsum(do, o, HEADS)
             del o
-            label = f"{name} {level} G={g} M={m} Sk={sk} d={c // HEADS}"
+            label = f"{tag}{name} {level} G={g} M={m} Sk={sk} d={c // HEADS}"
             cases.append(("B4", label, fused.mha_fwd,
                           [q, k, v, HEADS, None, scale], fused.mha_fwd_plain,
                           4 * g * m * sk * c))
@@ -921,6 +964,75 @@ def gradient_check(wrapper, plain, args, dname):
     return _compare(got, want, dname, GRAD_TOL)
 
 
+def kernel_row(kernel, label, wrapper, args, plain, flops, rest, dname,
+               timed=True):
+    """One comparison of phase 2 (and phase 16): the wrapper against its
+    plain version on `args`, its bound, where `timed` CUDA-event medians of
+    both and the SDPA yardstick for B4-B6 in bf16, and, but for B4/B5, the
+    gradient check."""
+    import torch
+    with torch.no_grad():
+        out = wrapper(*args)
+        ref = plain(*args)
+    torch.cuda.synchronize()
+    err, tol, scale = _compare(out, ref, dname)
+    nbytes = _nbytes(*_tensors(args), *_tensors(out))
+    if rest and rest[0] is not None:
+        nbytes = rest[0]
+    del out, ref
+    bound_ms, bound_by = _bound(flops, nbytes, dname)
+    row = dict(kernel=kernel, case=label, dtype=dname,
+               max_abs_err=err, tol=tol, max_abs_ref=scale,
+               ok=err <= tol, bytes=nbytes, operations=flops,
+               bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None, ms=None, plain_ms=None)
+    if timed:
+        with torch.no_grad():
+            row["ms"] = time_ms(lambda: wrapper(*args))
+            row["plain_ms"] = time_ms(lambda: plain(*args), 1, 3)
+        if kernel in ("B4", "B5", "B6") and dname == "bfloat16":
+            row["library_ms"] = sdpa_ms(kernel, args)
+    if kernel == "B7":
+        row.update(mix_extra(args, dname))
+    if kernel not in ("B4", "B5"):
+        g_err, g_tol, _ = gradient_check(wrapper, plain, args,
+                                         dname)
+        row.update(grad_max_abs_err=g_err, grad_tol=g_tol)
+        row["ok"] = row["ok"] and g_err <= g_tol
+    grad = (f"  grad err {row['grad_max_abs_err']:.3e} (tol "
+            f"{row['grad_tol']:.3e})" if "grad_tol" in row else "")
+    lib = (f"  sdpa {row['library_ms']:.3f} ms"
+           if row["library_ms"] is not None else "")
+    if kernel == "B7":
+        lib += (f"  graph {row['graph_ms']:.4f} ms  loader "
+                f"{row['loader']}")
+        for p, t in row.get("loader_ms", {}).items():
+            lib += f"  {p} {t:.4f}"
+        if row["matmul_ms"] is not None:
+            lib += (f"  matmul {row['matmul_ms']:.4f} ms "
+                    "(yardstick)")
+    times = (f"  kernel {row['ms']:8.4f} ms  plain {row['plain_ms']:8.3f} ms"
+             if timed else "  untimed")
+    log(f"  {kernel} {dname:8s} {label:44s} err {err:.3e} (tol "
+        f"{tol:.3e}){grad}{times}  bound {row['bound_ms']:.4f} "
+        f"ms ({row['bound_by']}){lib}  "
+        f"{'ok' if row['ok'] else 'FAIL'}")
+    return row
+
+
+def timed_row(rows, prefix):
+    """The bf16 row of `rows` whose case starts with `prefix`."""
+    return next(r for r in rows if r["dtype"] == "bfloat16"
+                and r["case"].startswith(prefix))
+
+
+def time_fields(row):
+    """A timed row's fields in the kernels line."""
+    return dict(timed_case=f"{row['case']} bf16", ms=row["ms"],
+                plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"], library_ms=row["library_ms"])
+
+
 def phase_kernels(report):
     import torch
     gen = torch.Generator(device="cuda").manual_seed(1234)
@@ -930,51 +1042,8 @@ def phase_kernels(report):
         for make in (kernel_cases, flash_cases, flat_cases):
             for kernel, label, wrapper, args, plain, flops, *rest in make(
                     gen, dtype):
-                with torch.no_grad():
-                    out = wrapper(*args)
-                    ref = plain(*args)
-                torch.cuda.synchronize()
-                err, tol, scale = _compare(out, ref, dname)
-                nbytes = _nbytes(*_tensors(args), *_tensors(out))
-                if rest and rest[0] is not None:
-                    nbytes = rest[0]
-                del out, ref
-                bound_ms, bound_by = _bound(flops, nbytes, dname)
-                row = dict(kernel=kernel, case=label, dtype=dname,
-                           max_abs_err=err, tol=tol, max_abs_ref=scale,
-                           ok=err <= tol, bytes=nbytes, operations=flops,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=None)
-                with torch.no_grad():
-                    row["ms"] = time_ms(lambda: wrapper(*args))
-                    row["plain_ms"] = time_ms(lambda: plain(*args), 1, 3)
-                if kernel in ("B4", "B5", "B6") and dname == "bfloat16":
-                    row["library_ms"] = sdpa_ms(kernel, args)
-                if kernel == "B7":
-                    row.update(mix_extra(args, dname))
-                if kernel not in ("B4", "B5"):
-                    g_err, g_tol, _ = gradient_check(wrapper, plain, args,
-                                                     dname)
-                    row.update(grad_max_abs_err=g_err, grad_tol=g_tol)
-                    row["ok"] = row["ok"] and g_err <= g_tol
-                rows.append(row)
-                grad = (f"  grad err {row['grad_max_abs_err']:.3e} (tol "
-                        f"{row['grad_tol']:.3e})" if "grad_tol" in row else "")
-                lib = (f"  sdpa {row['library_ms']:.3f} ms"
-                       if row["library_ms"] is not None else "")
-                if kernel == "B7":
-                    lib += (f"  graph {row['graph_ms']:.4f} ms  loader "
-                            f"{row['loader']}")
-                    for p, t in row.get("loader_ms", {}).items():
-                        lib += f"  {p} {t:.4f}"
-                    if row["matmul_ms"] is not None:
-                        lib += (f"  matmul {row['matmul_ms']:.4f} ms "
-                                "(yardstick)")
-                log(f"  {kernel} {dname:8s} {label:44s} err {err:.3e} (tol "
-                    f"{tol:.3e}){grad}  kernel {row['ms']:8.4f} ms  plain "
-                    f"{row['plain_ms']:8.3f} ms  bound {row['bound_ms']:.4f} "
-                    f"ms ({row['bound_by']}){lib}  "
-                    f"{'ok' if row['ok'] else 'FAIL'}")
+                rows.append(kernel_row(kernel, label, wrapper, args, plain,
+                                       flops, rest, dname))
             torch.cuda.empty_cache()
         rows += tool_kernel_rows(gen, dtype)
     rows += gemm_rows(gen)
@@ -1286,9 +1355,9 @@ def phase_pipeline(report):
 
 # ------------------------------------------------------------- phase 5 ---
 
-def build_trainer(dtype, batch_size):
+def build_trainer(dtype, batch_size, size=(256, 256)):
     """(trainer, state, batch, mask): the full-width training set-up on the
-    card.
+    card, on clips of `size` (h, w) frames.
     Seeded random weights with every parameter randomised, so that every
     sub-layer carries gradient; the trainable mask is the reference's
     (_temp / _audio); frozen parameters are stored in the compute dtype."""
@@ -1320,8 +1389,8 @@ def build_trainer(dtype, batch_size):
     state = TrainState(0, unet, build_optimizer(
         unet, 1e-4, mask=mask, weight_decay=1e-2, max_grad_norm=1.0))
     batch = {
-        "videos": torch.rand((batch_size, F, 256, 256, 3), generator=gen,
-                             device="cuda"),
+        "videos": torch.rand((batch_size, F) + tuple(size) + (3,),
+                             generator=gen, device="cuda"),
         "waveforms": torch.randn((batch_size, 1, 32000), generator=gen,
                                  device="cuda") * 0.1,
         "text_encodings": torch.randn((batch_size, TEXT_TOKENS, 768),
@@ -1331,7 +1400,7 @@ def build_trainer(dtype, batch_size):
 
 def _gen(seed):
     import torch
-    return torch.Generator(device="cuda").manual_seed(seed)
+    return torch.Generator(device=DEVICE).manual_seed(seed)
 
 
 def train_steps(trainer, state, batch, n_steps, first_seed):
@@ -1839,14 +1908,17 @@ def phase_sync(report):
 
 # ------------------------------------------------------------- phase 9 ---
 
-def _write_conditioning(tmp):
-    """A 256x256 PNG and 6.5 s of stereo 44.1 kHz int16 wav (a little more
-    than three 2 s clips: the resampler and the all-channel mean run)."""
+def _write_conditioning(tmp, hw=(256, 256)):
+    """An hw (h, w) PNG and 6.5 s of stereo 44.1 kHz int16 wav (a little
+    more than three 2 s clips: the resampler and the all-channel mean
+    run)."""
     import numpy as np
     from PIL import Image
     from scipy.io import wavfile
     rng = np.random.default_rng(900)
-    yy, xx = np.mgrid[0:256, 0:256] / 255.0
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w]
+    yy, xx = yy / (h - 1.0), xx / (w - 1.0)
     image = np.stack([xx, yy, 0.5 + 0.5 * np.sin(6 * xx + 4 * yy)], -1)
     image = np.clip(image + 0.05 * rng.standard_normal(image.shape), 0, 1)
     image_path = os.path.join(tmp, "cond.png")
@@ -1892,14 +1964,78 @@ def _unet_blocks(unet):
     return sum(b.use_audio for b in blocks), len(blocks)
 
 
+@contextlib.contextmanager
+def _counted_calls(module, calls):
+    """Count `module`'s forward calls into calls[0]."""
+    handle = module.register_forward_pre_hook(
+        lambda *_: calls.__setitem__(0, calls[0] + 1))
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def _request(pipe, plain=False, **kw):
+    """generate_videos(pipe, **kw), through the plain sub-layers where
+    `plain`: (its clips, the float video before the uint8 cast, seconds,
+    the launches counted from 0, the UNet's calls)."""
+    from asva_tpu_torch.pipelines.generate import generate_videos
+    rec, calls = _Captured(pipe), [0]
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_counted_calls(pipe.unet, calls))
+        if plain:
+            stack.enter_context(plain_sublayers())
+        _sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = generate_videos(rec, **kw)
+        _sync()
+        seconds = time.perf_counter() - t0
+    return out, rec.video(), seconds, read_counts(), calls[0]
+
+
+def _judge_frames(frames, waves, seed):
+    """The eval harness's metric step (phase 6's models, seeded) on uint8
+    frames (clips, F, h, w, 3) with their clips' waveforms, against seeded
+    random clips of the same shape as the ground truth: (metrics, seconds
+    of evaluate_arrays, every metric finite and in its range)."""
+    import numpy as np
+    import torch
+    from asva_tpu_torch.eval.harness import build_eval_models, evaluate_arrays
+    from asva_tpu_torch.ops.mel import waveform_to_mel
+    gen = torch.from_numpy(frames.astype(np.float32) / 255.0).to(DEVICE)
+    mels = torch.stack([waveform_to_mel(torch.as_tensor(w, device=DEVICE))
+                        for w in waves])
+    gt = torch.rand(gen.shape, generator=_gen(seed), device=DEVICE)
+    models = build_eval_models(DEVICE, torch.float32, seed=0,
+                               randomize_all=True)
+    t0 = time.perf_counter()
+    metrics, per_clip = evaluate_arrays(
+        models, [(gt, mels)], [(gen, mels)], ids=[_prompt_ids(seed + 1, 4)[0]],
+        device=DEVICE)
+    _sync()
+    seconds = time.perf_counter() - t0
+    del models
+    torch.cuda.empty_cache()
+    ok = (sorted(metrics) == sorted(
+            ["FID", "FVD", "IA_mean", "IA_std", "IT_mean", "IT_std",
+             "RelSync_mean", "RelSync_std", "AlignSync_mean",
+             "AlignSync_std"])
+          and all(math.isfinite(v) for v in metrics.values())
+          and all(len(v) == len(frames) and np.isfinite(v).all()
+                  and ((v >= 0) & (v <= 1)).all()
+                  for k, v in per_clip.items() if k != "IA")
+          and abs(metrics["IA_mean"]) <= 1 + 1e-3
+          and abs(metrics["IT_mean"]) <= 1 + 1e-3)
+    return metrics, seconds, ok
+
+
 def phase_files(report, pipeline_seconds):
     """generate_videos from a PNG and a wav at full width, both batch_clips
     modes, then the eval harness's metric step on the frames."""
     import numpy as np
     import torch
     from asva_tpu_torch.data import media
-    from asva_tpu_torch.eval.harness import build_eval_models, evaluate_arrays
-    from asva_tpu_torch.ops.mel import waveform_to_mel
     from asva_tpu_torch.pipelines.generate import (generate_videos,
                                                    load_audio_clips_uniformly)
     from asva_tpu_torch.runtime import load_animation_pipeline
@@ -1909,17 +2045,17 @@ def phase_files(report, pipeline_seconds):
     with tempfile.TemporaryDirectory() as tmp:
         image_path, audio_path = _write_conditioning(tmp)
         text = torch.randn((TEXT_TOKENS, 768), generator=_gen(901),
-                           device="cuda")
+                           device=DEVICE)
         kw = dict(image_path=image_path, audio_path=audio_path,
                   category_text_encoding=text, image_size=(256, 256),
                   video_fps=6, video_num_frame=F,
                   num_clips_per_video=n_clips, num_inference_steps=steps,
                   sampler="ddim", audio_guidance_scale=4.0,
                   text_guidance_scale=1.0, seed=7, save_template="")
-        null_text = torch.randn((1, TEXT_TOKENS, 768), device="cuda",
+        null_text = torch.randn((1, TEXT_TOKENS, 768), device=DEVICE,
                                 generator=_gen(100))
         pipes = {dtype: load_animation_pipeline(
-            device="cuda", dtype=dtype, seed=0, randomize_all=True,
+            device=DEVICE, dtype=dtype, seed=0, randomize_all=True,
             null_text_encoding=null_text)
             for dtype in (torch.bfloat16, torch.float32)}
         n_audio, n_blocks = _unet_blocks(pipes[torch.bfloat16].unet)
@@ -1929,21 +2065,13 @@ def phase_files(report, pipeline_seconds):
             dname = str(dtype).split(".")[-1]
             for batch in (True, False):
                 mode = f"{dname} {'batched' if batch else 'per-clip'}"
-                rec = _Captured(pipe)
-                torch.cuda.synchronize()
-                reset_counts()
-                t0 = time.perf_counter()
-                out = generate_videos(rec, batch_clips=batch, **kw)
-                torch.cuda.synchronize()
-                seconds[mode] = time.perf_counter() - t0
-                counts[mode] = read_counts()
-                runs[mode] = (out, rec.video())
+                out, video, seconds[mode], counts[mode], _ = _request(
+                    pipe, batch_clips=batch, **kw)
+                runs[mode] = (out, video)
         # the reference for the bf16 gate: the bf16 pipeline through the
         # plain sub-layers, batched
-        rec = _Captured(pipes[torch.bfloat16])
-        with plain_sublayers():
-            generate_videos(rec, batch_clips=True, **kw)
-        plain16 = rec.video()
+        plain16 = _request(pipes[torch.bfloat16], plain=True,
+                           batch_clips=True, **kw)[1]
 
         refused = None
         if not media.media_available():   # no libav: the write must refuse
@@ -2000,32 +2128,8 @@ def phase_files(report, pipeline_seconds):
 
     # the eval harness's metric step on the returned frames (phase 6's
     # models), seeded random clips as the ground truth
-    gen = torch.from_numpy(frames("bfloat16 batched").astype(
-        np.float32) / 255.0).cuda()
-    mels = torch.stack([waveform_to_mel(torch.as_tensor(w, device="cuda"))
-                        for w in waves])
-    gt = torch.rand(gen.shape, generator=_gen(902), device="cuda")
-    models = build_eval_models("cuda", torch.float32, seed=0,
-                               randomize_all=True)
-    t0 = time.perf_counter()
-    metrics, per_clip = evaluate_arrays(
-        models, [(gt, mels)], [(gen, mels)], ids=[_prompt_ids(903, 4)[0]],
-        device="cuda")
-    torch.cuda.synchronize()
-    metric_s = time.perf_counter() - t0
-    del models
-    torch.cuda.empty_cache()
-    metrics_ok = (
-        sorted(metrics) == sorted(
-            ["FID", "FVD", "IA_mean", "IA_std", "IT_mean", "IT_std",
-             "RelSync_mean", "RelSync_std", "AlignSync_mean",
-             "AlignSync_std"])
-        and all(math.isfinite(v) for v in metrics.values())
-        and all(len(v) == n_clips and np.isfinite(v).all()
-                and ((v >= 0) & (v <= 1)).all()
-                for k, v in per_clip.items() if k != "IA")
-        and abs(metrics["IA_mean"]) <= 1 + 1e-3
-        and abs(metrics["IT_mean"]) <= 1 + 1e-3)
+    metrics, metric_s, metrics_ok = _judge_frames(
+        frames("bfloat16 batched"), waves, 902)
 
     per_clip_s = {m: s / n_clips for m, s in seconds.items()}
     report["files"] = dict(
@@ -4558,6 +4662,398 @@ def phase_weights(report):
     return {"request": counts, "train": train_counts}
 
 
+# ------------------------------------------------------------ phase 16 ---
+
+GHITS_YAML = "configs/audio-cond_animation/thegreatesthits_audio-cond_cfg.yaml"
+RECT_SIZE = (128, 256)          # TheGreatestHits' (h, w) frames
+# 128x256's latent levels (16x32): tokens and channels of each attention
+RECT_LEVELS = {"16x32": (512, 320), "8x16": (128, 640), "4x8": (32, 1280),
+               "2x4": (8, 1280)}
+RECT_CLIPS = 3                  # the recipe's clips a video
+RECT_B = 2 * RECT_CLIPS         # UNet rows of a request under audio CFG
+RECT_TRAIN_B = 16               # the YAML's batch_size
+RECT_STEPS = 50                 # animation_gen's PLMS default
+# the cases whose bf16 times go into the kernels line
+RECT_TIMED_CASE = {"B1": "rect train attn1 16x32", "B2": "rect attn3 16x32",
+                   "B3": "rect ff 16x32", "B4": "rect attn1 16x32",
+                   "B5": "rect attn1 16x32"}
+RECT_TRAIN_TIMED_CASE = {"B3": "rect train ff 16x32"}
+
+
+def rect_kernels(report):
+    """Phase 16 (a): B1-B5 at TheGreatestHits' shapes against their plain
+    versions in fp32 and bf16, under phase 2's gates and gradient checks:
+    B2 and B3 at every level of a request (3 clips under audio CFG: 6 rows
+    of 12 frames), B1 and B3 at every level of a training batch of 16, B4
+    and B5 at its attention shapes.  The bf16 rows are timed."""
+    import torch
+    gen = torch.Generator(device=DEVICE).manual_seed(1616)
+    every = tuple(RECT_LEVELS)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for make in (lambda: kernel_cases(
+                         gen, dtype, RECT_LEVELS, RECT_B, RECT_TRAIN_B,
+                         "rect ", every, (("train ", every),)),
+                     lambda: flash_cases(gen, dtype, RECT_LEVELS,
+                                         RECT_TRAIN_B, "rect ")):
+            cases = make()
+            while cases:                 # each case's tensors freed after it
+                kernel, label, wrapper, args, plain, flops = cases.pop(0)
+                rows.append(kernel_row(kernel, label, wrapper, args, plain,
+                                       flops, (), dname,
+                                       timed=dname == "bfloat16"))
+                del args
+            torch.cuda.empty_cache()
+    bad = [(r["kernel"], r["dtype"], r["case"]) for r in rows if not r["ok"]]
+    report["kernels"] = rows
+    if bad:
+        fail(f"phase 16: {len(bad)} kernel comparisons out of tolerance at "
+             f"128x256's shapes: {bad}")
+    return rows
+
+
+def rect_request(report, tmp):
+    """Phase 16 (b): the recipe's request.  generate_videos from a 4:3 PNG
+    and a wav at image_size (128, 256), 3 clips batched, PLMS 50, audio
+    guidance 4.0, text guidance 1.0, on seeded full-size weights in bf16
+    and fp32, each also through the plain sub-layers.  Returns (the bf16
+    request's launches, its frames (3, 12, 128, 256, 3) uint8, the clips'
+    waveforms)."""
+    import numpy as np
+    import torch
+    from asva_tpu_torch.diffusion.samplers import plms_plan
+    from asva_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from asva_tpu_torch.pipelines.generate import load_audio_clips_uniformly
+    from asva_tpu_torch.runtime import load_animation_pipeline
+    image_path, audio_path = _write_conditioning(tmp, (480, 640))
+    text = torch.randn((TEXT_TOKENS, 768), generator=_gen(1601),
+                       device=DEVICE)
+    kw = dict(image_path=image_path, audio_path=audio_path,
+              category_text_encoding=text, image_size=RECT_SIZE,
+              video_fps=6, video_num_frame=F, num_clips_per_video=RECT_CLIPS,
+              num_inference_steps=RECT_STEPS, sampler="plms",
+              audio_guidance_scale=4.0, text_guidance_scale=1.0, seed=0)
+    null_text = torch.randn((1, TEXT_TOKENS, 768), device=DEVICE,
+                            generator=_gen(100))
+    runs, seconds, counts, calls, peaks = {}, {}, {}, {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        pipe = load_animation_pipeline(device=DEVICE, dtype=dtype, seed=0,
+                                       randomize_all=True,
+                                       null_text_encoding=null_text)
+        n_audio, n_blocks = _unet_blocks(pipe.unet)
+        for mode in ("kernels", "plain"):
+            name = f"{dname} {mode}"
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            out, video, seconds[name], counts[name], calls[name] = _request(
+                pipe, plain=mode == "plain", **kw)
+            peaks[name] = torch.cuda.max_memory_allocated()
+            runs[name] = (out, video)
+            log(f"  request {name}: {seconds[name]:.2f} s "
+                f"({seconds[name] / RECT_CLIPS:.3f} s a clip), {calls[name]} "
+                f"UNet calls, peak {peaks[name] / 2**30:.2f} GiB, launches "
+                f"{ {k: v for k, v in counts[name].items() if v} }")
+        del pipe
+        torch.cuda.empty_cache()
+    waves = load_audio_clips_uniformly(audio_path, F / 6, RECT_CLIPS)
+
+    n_iter = plms_plan(DiffusionSchedule(), RECT_STEPS).num_iterations
+    shape_ok = all(
+        len(out) == RECT_CLIPS and all(
+            f.shape == (F,) + RECT_SIZE + (3,) and f.dtype == np.uint8
+            and a.shape == (2, 32000) for f, a in out)
+        and tuple(video.shape) == (RECT_CLIPS, F) + RECT_SIZE + (3,)
+        and bool(torch.isfinite(video).all())
+        for out, video in runs.values())
+    counts_ok = all(
+        calls[m] == n_iter
+        and counts[m]["B2"] == (n_audio * n_iter if "kernels" in m else 0)
+        and counts[m]["B3"] == (n_blocks * n_iter if "kernels" in m else 0)
+        and counts[m]["B1"] == counts[m]["B6"] == 0 for m in runs)
+
+    def frames(name):
+        return np.stack([f for f, _ in runs[name][0]]).astype(np.int16)
+    d32 = np.abs(frames("float32 kernels") - frames("float32 plain"))
+    ref32 = runs["float32 plain"][1]
+
+    def rel_rms(v):
+        return ((v - ref32).norm() / ref32.norm()).item()
+    gate = dict(fp32_max_levels=int(d32.max()),
+                fp32_share_differing=float((d32 > 0).mean()),
+                fp32_kernels_rel_rms=rel_rms(runs["float32 kernels"][1]),
+                bf16_kernels_rel_rms=rel_rms(runs["bfloat16 kernels"][1]),
+                bf16_plain_rel_rms=rel_rms(runs["bfloat16 plain"][1]))
+    # phase 4's rules: fp32 within one uint8 level of the plain
+    # sub-layers; bf16's relative RMS distance from the fp32 plain video
+    # within 1.5x the plain bf16 version's
+    gate_ok = (gate["fp32_max_levels"] <= 1
+               and gate["bf16_kernels_rel_rms"]
+               <= 1.5 * gate["bf16_plain_rel_rms"])
+    out = dict(image_size=list(RECT_SIZE), clips=RECT_CLIPS, sampler="plms",
+               steps=RECT_STEPS, unet_calls=calls, plan_iterations=n_iter,
+               seconds=seconds, seconds_per_clip={
+                   m: s / RECT_CLIPS for m, s in seconds.items()},
+               max_memory_allocated=peaks, launches=counts,
+               blocks=dict(audio=n_audio, all=n_blocks), gate=gate,
+               shape_ok=shape_ok, counts_ok=counts_ok, gate_ok=gate_ok)
+    report["request"] = out
+    log(f"  request: {n_iter} UNet calls a request (PLMS {RECT_STEPS}), "
+        f"B2 = {n_audio} x calls, B3 = {n_blocks} x calls; gates {gate}")
+    if not (shape_ok and counts_ok and gate_ok):
+        fail(f"phase 16 request: {out}")
+    return counts["bfloat16 kernels"], frames("bfloat16 kernels"), waves
+
+
+def _step_launches(unet, policy):
+    """{B1, B3, B4, B5: launches of one batch's gradient step} with remat
+    `policy` (None: no remat) at fuse_blocks=False: each attention
+    sub-layer runs B1 (and B4 in it) and each transformer block B3 in the
+    forward, and again where its level is rematerialised in full; B5 once
+    an attention sub-layer."""
+    from asva_tpu_torch.models.unet3d.model import remat_saves_at
+    from asva_tpu_torch.models.unet3d.primitives import (CrossAttention,
+                                                         FFSpatialAttention)
+    from asva_tpu_torch.models.unet3d.transformer import (
+        SpatioAudioTempTransformerBlock)
+    top = len(unet.down_blocks) - 1
+    units = (list(enumerate(unet.down_blocks)) + [(top, unet.mid_block)]
+             + [(top - i, b) for i, b in enumerate(unet.up_blocks)])
+    attn = ff = once = 0
+    for level, block in units:
+        saves = None if policy is None else remat_saves_at(policy, level)
+        if saves not in (None, ()):
+            fail(f"_step_launches counts no partial remat ({policy})")
+        runs = 1 if saves is None else 2
+        n_attn = sum(isinstance(m, (FFSpatialAttention, CrossAttention))
+                     for m in block.modules())
+        attn += runs * n_attn
+        ff += runs * sum(isinstance(m, SpatioAudioTempTransformerBlock)
+                         for m in block.modules())
+        once += n_attn
+    return {"B1": attn, "B4": attn, "B3": ff, "B5": once}
+
+
+class ChipClipsOneEncoding(ChipClips):
+    """ChipClips whose text encoding is TheGreatestHits' one tensor for
+    every item (read by load_text_encoding_mapping from a .pt holding it
+    alone, as AudioVideoDataset reads class_text_encoding_mapping_pt when
+    class_mapping_json is empty)."""
+
+    def __init__(self, n, dataset_cfg, seed):
+        import numpy as np
+        from asva_tpu_torch.data.datasets import load_text_encoding_mapping
+        super().__init__(n, dataset_cfg, seed)
+        enc = load_text_encoding_mapping(
+            dataset_cfg.class_text_encoding_mapping_pt)
+        if not isinstance(enc, np.ndarray):
+            fail(f"the single-tensor encoding read as a {type(enc)}")
+        self.encoding = enc.reshape(enc.shape[-2], enc.shape[-1])
+
+    def __getitem__(self, index):
+        item = super().__getitem__(index)
+        item["text_encoding"] = self.encoding
+        return item
+
+
+def rect_train(report, tmp):
+    """Phase 16 (c): animation_train.train from the TheGreatestHits YAML
+    (batch 16 of 12x128x256, accumulation 1, remat as the YAML sets it) for
+    3 steps on in-memory items with the single-tensor encoding, checkpoint-2
+    kept; a run resumed from it takes step 3 bit for bit; an fp32 batch-1
+    step against the plain sub-layers.  Returns the launches of the 3 + 1
+    steps."""
+    import shutil
+
+    import torch
+    from asva_tpu_torch.config import AnimationJobConfig
+    from asva_tpu_torch.scripts import animation_train
+    from asva_tpu_torch.training.checkpoint import CheckpointManager
+    enc_path = os.path.join(tmp, "class_clip_text_encodings.pt")
+    torch.save(torch.randn((1, TEXT_TOKENS, 768), generator=torch.Generator(
+        ).manual_seed(1602)), enc_path)
+
+    def run(name):
+        def edit(raw):
+            raw["exp"].update(output_dir=os.path.join(tmp, name),
+                              log_with=None)
+            raw["train"]["log_steps"] = 1
+            raw["train"]["dataset"].update(
+                data_root=tmp, example_list_path=os.path.join(tmp, "none"),
+                class_text_encoding_mapping_pt=enc_path)
+            raw["optim"].update(checkpointing_steps=2,
+                                checkpointing_milestones=2)
+        cfg = AnimationJobConfig.from_yaml(_job_yaml(GHITS_YAML, tmp, name,
+                                                     edit))
+        n = cfg.batch_size * 3         # 3 steps of one batch
+        _sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = animation_train.train(
+            cfg, ChipClipsOneEncoding(n, cfg.dataset, cfg.seed), DEVICE, 3)
+        _sync()
+        return cfg, res, time.perf_counter() - t0, read_counts(), \
+            CheckpointManager(os.path.join(tmp, name, "ckpts"))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    marks = []
+    with _timed_saves(marks):
+        cfg, full, full_s, counts_full, mgr = run("uninterrupted")
+    peak = torch.cuda.max_memory_allocated()
+    state = full["state"]
+    want = {n: p.detach().clone() for n, p in
+            zip(state.optimizer.names, state.optimizer.params)}
+    per_batch = _step_launches(state.unet, cfg.unet.remat_policy
+                               if cfg.unet.remat else None)
+    full_losses = full["losses"]
+    del full, state
+    os.makedirs(os.path.join(tmp, "resumed", "ckpts"))
+    os.rename(mgr._path(2), os.path.join(tmp, "resumed", "ckpts",
+                                         "checkpoint-2"))
+    shutil.rmtree(os.path.join(tmp, "uninterrupted"))
+    torch.cuda.empty_cache()
+    _, resumed, resumed_s, counts_resumed, _ = run("resumed")
+    state = resumed["state"]
+    same = all(torch.equal(p, want[n]) for n, p in
+               zip(state.optimizer.names, state.optimizer.params))
+    d = cfg.dataset
+    out = dict(yaml=GHITS_YAML, batch_size=cfg.batch_size,
+               accumulation=cfg.optim.gradient_accumulation_steps,
+               img_size=list(d.img_size), frames=d.video_num_frame,
+               remat=cfg.unet.remat, remat_policy=cfg.unet.remat_policy,
+               losses=full_losses, seconds_3_steps=full_s,
+               # step 3 alone: from checkpoint-2's save to the card's
+               # synchronisation before checkpoint-3's
+               seconds_step3=marks[1][1] - marks[0][2],
+               save_seconds=[round(m[2] - m[1], 3) for m in marks],
+               max_memory_allocated=peak, resumed_from=resumed[
+                   "resumed_from"], resumed_losses=resumed["losses"],
+               resumed_seconds=resumed_s, params_equal=same,
+               launches_uninterrupted=counts_full,
+               launches_resumed=counts_resumed)
+    log(f"  train: {GHITS_YAML} batch {cfg.batch_size} x accumulation "
+        f"{out['accumulation']} of {d.video_num_frame} x {list(d.img_size)}, "
+        f"remat {cfg.unet.remat} ({cfg.unet.remat_policy}); 3 steps in "
+        f"{full_s:.1f} s with the builds and saves (step 3 "
+        f"{out['seconds_step3']:.3f} s; saves {out['save_seconds']} s); "
+        f"max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; losses {full_losses}; resumed from "
+        f"checkpoint-{resumed['resumed_from']} {resumed['losses']}; "
+        f"parameters equal {same}")
+    del resumed, state, want
+    torch.cuda.empty_cache()
+    ok = (cfg.batch_size == RECT_TRAIN_B and tuple(d.img_size) == RECT_SIZE
+          and out["accumulation"] == 1 and cfg.unet.remat
+          and len(full_losses) == 3
+          and all(math.isfinite(x) for x in full_losses)
+          and out["resumed_from"] == 2
+          and out["resumed_losses"] == full_losses[2:] and same)
+    counts = {k: counts_full[k] + counts_resumed[k] for k in counts_full}
+    # the 3 + 1 steps of one batch each: B1 and K-gemm's q and out
+    # projections once an attention sub-layer, B3 and the FF's two products
+    # once a block, each again where remat recomputes its level
+    want = {k: 4 * n for k, n in per_batch.items()}
+    want.update({"KG.q": want["B1"], "KG.out": want["B1"],
+                 "KG.ff1": want["B3"], "KG.ff2": want["B3"], "B2": 0,
+                 "B6": 0})
+    out["expected_launches"] = want
+    counts_ok = all(counts[k] == n for k, n in want.items())
+    if not (ok and counts_ok):
+        fail(f"phase 16 train: {out}")
+
+    # fp32 at batch 1 on 128x256 clips: phase 5's gates
+    trainer, state, batch, _ = build_trainer(torch.float32, 1, RECT_SIZE)
+    draws = trainer.draw(batch, _gen(1603))
+    loss_k, grads_k = trainer.grad_step(state, batch, draws=draws)
+    with plain_sublayers():
+        loss_p, grads_p = trainer.grad_step(state, batch, draws=draws)
+    worst = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-12)).item()
+                for a, b in zip(grads_k, grads_p))
+    loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    out["fp32_batch1"] = dict(loss_kernels=loss_k.item(),
+                              loss_plain=loss_p.item(), loss_rel=loss_rel,
+                              worst_grad_rel_to_max=worst)
+    log(f"  train: fp32 batch 1 at 128x256, kernels vs plain "
+        f"{out['fp32_batch1']}")
+    report["train"] = out
+    del trainer, state, batch, grads_k, grads_p
+    torch.cuda.empty_cache()
+    if not (loss_rel <= 1e-4 and worst <= 2e-3):
+        fail(f"phase 16 fp32 batch-1 step: {out['fp32_batch1']}")
+    return counts
+
+
+def rect_judge(report, frames, waves):
+    """Phase 16 (d): evaluate_arrays on the request's three 128x256 clips
+    against three seeded reference clips of the same size, with phase 6's
+    five nets at their published sizes (phase 9's metric step and
+    checks)."""
+    metrics, seconds, ok = _judge_frames(frames, waves, 1604)
+    report["judge"] = dict(metrics=metrics, seconds=seconds,
+                           clip_shape=list(frames.shape), ok=ok)
+    log(f"  judge: {list(frames.shape)} clips, metrics {metrics}; "
+        f"evaluate_arrays {seconds:.2f} s")
+    if not ok:
+        fail(f"phase 16 judge: {report['judge']}")
+
+
+def rect_kernel_entries(p16):
+    """{kernel: its phase-16 fields for the kernels line}: the bf16 times
+    of its timed 128x256 cases beside the plain version's, the bound and
+    the SDPA yardstick, the worst error of its rows and its launches on
+    phase 16's paths."""
+    rows, out = p16["kernels"], {}
+    for name, prefix in RECT_TIMED_CASE.items():
+        mine = [r for r in rows if r["kernel"] == name]
+        entry = time_fields(timed_row(mine, prefix))
+        if name in RECT_TRAIN_TIMED_CASE:
+            entry["train_shape"] = time_fields(timed_row(
+                mine, RECT_TRAIN_TIMED_CASE[name]))
+        entry["max_abs_err"] = max(r["max_abs_err"] for r in mine)
+        entry["launches"] = {path: p16[path][name]
+                             for path in ("request", "train")
+                             if p16[path][name]}
+        out[name] = entry
+    return out
+
+
+def phase_rect(report):
+    """Phase 16: TheGreatestHits' rectangular configuration at full width.
+    Returns {"kernels": its rows, "request": launches of the bf16 request,
+    "train": launches of the 3 + 1 training steps}."""
+    import torch
+    os.environ["WANDB_MODE"] = "disabled"
+    out = report["rect"] = {}
+    parts = out["part_seconds"] = {}
+    t0 = time.perf_counter()
+
+    def part(name):
+        nonlocal t0
+        parts[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+    log("  (a) B1-B5 at 128x256's shapes")
+    rows = rect_kernels(out)
+    part("kernels")
+    cudnn_was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True   # the resume compares bits
+    with tempfile.TemporaryDirectory() as tmp:
+        log("  (b) the recipe's request: generate_videos, 3 clips, PLMS 50")
+        request, frames, waves = rect_request(out, tmp)
+        part("request")
+        log("  (c) animation_train on the TheGreatestHits YAML, batch 16")
+        train = rect_train(out, tmp)
+        part("train")
+    torch.backends.cudnn.deterministic = cudnn_was
+    log("  (d) the judge on the three 128x256 clips")
+    rect_judge(out, frames, waves)
+    part("judge")
+    log(f"  phase 16 seconds by part: "
+        f"{ {k: round(v, 1) for k, v in parts.items()} }")
+    return {"kernels": rows, "request": request, "train": train}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4579,6 +5075,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     report = {"torch": torch.__version__, "cuda": torch.version.cuda,
               "device": torch.cuda.get_device_name(0)}
+    t_run = time.perf_counter()
+
+    def stamp(msg):
+        """A phase's header with the seconds since the start (the whole
+        run must end within 1200 s), kept in the report."""
+        at = time.perf_counter() - t_run
+        report.setdefault("phase_started_s", []).append([msg, round(at, 1)])
+        log(f"{msg} [{at:.0f} s in]")
 
     log("phase 1: build")
     t0 = time.perf_counter()
@@ -4666,6 +5170,20 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": cards}}))
         return 0
+    if "--rect-only" in sys.argv[1:]:
+        log(f"phase 16 alone: TheGreatestHits' 128x256 configuration on "
+            f"{card}")
+        p16 = phase_rect(report)
+        with open(os.path.join(out_dir, "chip_smoke_rect.json"), "w") as f:
+            json.dump(report, f, indent=1)
+        print(json.dumps({"phase16_launches": {
+            "request": p16["request"], "train": p16["train"]},
+            "phase16_kernels": rect_kernel_entries(p16)}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": cards}}))
+        return 0
     if "--cards-only" in sys.argv[1:]:
         log(f"phase 14 alone: the meshes across {CARD_RANKS} cards over NCCL"
             f" on {smi}")
@@ -4679,42 +5197,44 @@ def main() -> int:
             "count": cards}}))
         return 0
 
-    log("phase 2: kernels vs plain")
+    stamp("phase 2: kernels vs plain")
     rows = phase_kernels(report)
-    log("phase 3: ln=None modules, fused_ff_mix, unet")
+    stamp("phase 3: ln=None modules, fused_ff_mix, unet")
     b6_count, b7_count = phase_attend(report)
     b1_counts = phase_unet(report)
-    log("phase 4: pipeline")
+    stamp("phase 4: pipeline")
     pipe_counts = phase_pipeline(report)
-    log("phase 5: train")
+    stamp("phase 5: train")
     train_counts = phase_train(report)
-    log("phase 6: judge")
+    stamp("phase 6: judge")
     judge_counts = phase_judge(report)
     if pipe_counts["B6"] or train_counts["B6"] or judge_counts["B6"]:
         fail("generation or training launched B6: they go through B1-B5")
-    log("phase 7: tools")
+    stamp("phase 7: tools")
     tool_counts = phase_tools(report)
-    log("phase 8: sync trainer")
+    stamp("phase 8: sync trainer")
     phase_sync(report)
-    log("phase 9: generation and evaluation from files")
+    stamp("phase 9: generation and evaluation from files")
     batched_counts, per_clip_counts = phase_files(
         report, report["pipeline"]["seconds_per_clip"])
-    log("phase 10: training and serving from the CLIs")
+    stamp("phase 10: training and serving from the CLIs")
     cli_counts, serve_counts = phase_cli(report)
-    log(f"phase 11: training across {RANKS} processes")
+    stamp(f"phase 11: training across {RANKS} processes")
     rank_counts = phase_ranks(report)
-    log("phase 12: generation at data 2 and seq 2, FSDP at fsdp 2")
+    stamp("phase 12: generation at data 2 and seq 2, FSDP at fsdp 2")
     p12 = phase_parallel_gen_fsdp(report)
-    log("phase 13: the remat policies")
+    stamp("phase 13: the remat policies")
     remat_counts = phase_remat(report)
-    log("phase 15: the real-weights path at full size, from files")
+    stamp("phase 15: the real-weights path at full size, from files")
     p15 = phase_weights(report)
+    stamp("phase 16: TheGreatestHits' 128x256 configuration")
+    p16 = phase_rect(report)
     p14 = None
     if cards >= CARD_RANKS:
-        log(f"phase 14: the meshes across {CARD_RANKS} cards over NCCL")
+        stamp(f"phase 14: the meshes across {CARD_RANKS} cards over NCCL")
         p14 = phase_cards(report)
     else:
-        log(f"phase 14: not run: it needs {CARD_RANKS} visible CUDA cards "
+        stamp(f"phase 14: not run: it needs {CARD_RANKS} visible CUDA cards "
             f"and this machine shows {cards}; on a machine with "
             f"{CARD_RANKS}, `python3 chip_smoke.py --cards-only` runs it "
             "(or this script runs it after phase 13)")
@@ -4759,6 +5279,14 @@ def main() -> int:
                        ("train", ("B1", "B3", "B4", "B5"))):
         for key in keys:
             by_path[key][p15_paths[path]] = p15[path][key]
+    p16_paths = {"request": "phase 16: generate_videos at 128x256, 3 clips"
+                            ", PLMS 50 (bf16)",
+                 "train": "phase 16: animation_train on the TheGreatestHits "
+                          "YAML, batch 16, 3 + 1 steps"}
+    for path, keys in (("request", ("B2", "B3")),
+                       ("train", ("B1", "B3", "B4", "B5"))):
+        for key in keys:
+            by_path[key][p16_paths[path]] = p16[path][key]
     p14_paths = {"generation": f"generation, {CARD_RANKS} cards at data 4, "
                                "seq 4 and data 2 x seq 2",
                  "training": f"animation_train, {CARD_RANKS} cards at data "
@@ -4789,26 +5317,23 @@ def main() -> int:
                         remat_path: remat_counts[key]}
         for path, name in p15_paths.items():
             by_path[key][name] = p15[path][key]
+        for path, name in p16_paths.items():
+            by_path[key][name] = p16[path][key]
         if p14 is not None:
             for path, name in p14_paths.items():
                 by_path[key][name] = p14[path][key]
+    rect = rect_kernel_entries(p16)
     kernels = []
     for name, (replaces, tpu, sources) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name
                 and r.get("supported", True)]
-
-        def timed(prefix):
-            return next(r for r in mine if r["dtype"] == "bfloat16"
-                        and r["case"].startswith(prefix))
-        main = timed(TIMED_CASE[name])
+        main = timed_row(mine, TIMED_CASE[name])
         err = max(r["max_abs_err"] for r in mine)
         entry = dict(
             name=name, route="cuda", source=sources[0], sources=sources,
             replaces=replaces, tpu=tpu, launches=sum(by_path[name].values()),
-            launches_by_path=by_path[name], max_abs_err=err, ms=main["ms"],
-            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
-            bound_by=main["bound_by"], library_ms=main["library_ms"],
-            timed_case=f"{main['case']} bf16")
+            launches_by_path=by_path[name], max_abs_err=err,
+            **time_fields(main))
         if "matmul_ms" in main:          # K-gemm, B7: the product yardstick
             entry["matmul_ms"] = main["matmul_ms"]
             if "tflops" in main:
@@ -4821,18 +5346,19 @@ def main() -> int:
             entry["ms_by_case"] = {r["case"].strip(): r["ms"] for r in mine
                                    if r["dtype"] == "bfloat16"}
         if name in TRAIN_TIMED_CASE:
-            train = timed(TRAIN_TIMED_CASE[name])
-            entry["train_shape"] = dict(
-                timed_case=f"{train['case']} bf16", ms=train["ms"],
-                plain_ms=train["plain_ms"], bound_ms=train["bound_ms"],
-                bound_by=train["bound_by"])
+            train = timed_row(mine, TRAIN_TIMED_CASE[name])
+            entry["train_shape"] = time_fields(train)
             if "matmul_ms" in train:
                 entry["train_shape"].update(matmul_ms=train["matmul_ms"],
                                             tflops=train["tflops"])
+        if name in rect:
+            entry["rect_128x256"] = rect[name]
         kernels.append(entry)
     if any(n <= 0 for paths in by_path.values() for n in paths.values()):
         fail(f"a kernel was not launched on one of its paths: {by_path}")
 
+    report["seconds"] = time.perf_counter() - t_run
+    stamp("all phases passed")
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 

@@ -289,7 +289,9 @@ def ranks(gen_weights, tmp_path_factory):
     return results, out, solo
 
 
-def _start(out):
+def _start(out, script=__file__):
+    """The pair of ranks, each `script` run with `out` (this file's
+    rank_main by default)."""
     env = dict(os.environ, PYTHONPATH=tp.REPO, MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(tp._free_port()), WORLD_SIZE="2",
                LOCAL_WORLD_SIZE="2", OMP_NUM_THREADS="1")
@@ -298,7 +300,7 @@ def _start(out):
         env.update(RANK=str(rank), LOCAL_RANK=str(rank))
         with open(os.path.join(out, f"ranks.{rank}.log"), "w") as log:
             procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), str(out)],
+                [sys.executable, os.path.abspath(script), str(out)],
                 env=dict(env), stdout=log, stderr=subprocess.STDOUT))
     return procs, time.monotonic()
 
