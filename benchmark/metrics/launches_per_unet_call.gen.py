@@ -1,0 +1,8 @@
+"""Device kernels in the profiled span per UNet call in it."""
+
+
+def read(rec):
+    t = rec.trace
+    if not t or not t["launches"]:
+        return None
+    return t["launches"] / t["units"]
