@@ -65,6 +65,7 @@ from torch import nn
 from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ...observability import span
 from ...ops import remat
 from ...ops.norms import VideoGroupNorm
 from ...parallel import sharding
@@ -116,6 +117,13 @@ class UNet3DConfig:
 def _call(module, fsdp: bool, *args):
     """module(*args); under FSDP on its gathered parameters."""
     return sharding.call_gathered(module, *args) if fsdp else module(*args)
+
+
+def _spanned(name: str, module, fsdp: bool, *args):
+    """_call inside span(name): a block's forward, and its recompute where
+    the block is rematerialised."""
+    with span(name):
+        return _call(module, fsdp, *args)
 
 
 def _unit(fn, saves, *args):
@@ -195,18 +203,25 @@ class AudioUNet3D(nn.Module):
         self.conv_norm_out = VideoGroupNorm(cfg.norm_num_groups, ch[0],
                                             cfg.norm_eps)
         self.conv_out = FFInflatedConv(ch[0], cfg.out_channels)
+        # the blocks' span names, made once (observability.span)
+        self._down_spans = tuple(f"unet.down.{i}"
+                                 for i in range(len(self.down_blocks)))
+        self._up_spans = tuple(f"unet.up.{i}"
+                               for i in range(len(self.up_blocks)))
 
-    def _run_block(self, block, level: int, *args, fsdp: bool = False):
-        """block(*args), rematerialised in the backward as the config's
-        policy has it at this resolution level; under FSDP on its gathered
-        parameters, and always rematerialised."""
+    def _run_block(self, block, level: int, *args, fsdp: bool = False,
+                   name: str = "unet.block"):
+        """block(*args) inside span(name), rematerialised in the backward
+        as the config's policy has it at this resolution level; under FSDP
+        on its gathered parameters, and always rematerialised."""
         saves = None
         if torch.is_grad_enabled():
             if self.config.remat:
                 saves = remat_saves_at(self.config.remat_policy, level)
             if fsdp and saves is None:
                 saves = ()
-        return _unit(functools.partial(_call, block, fsdp), saves, *args)
+        return _unit(functools.partial(_spanned, name, block, fsdp), saves,
+                     *args)
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 text_context: Optional[torch.Tensor],
@@ -261,16 +276,18 @@ class AudioUNet3D(nn.Module):
         emb = emb[:, None, :].expand(b, f, emb.shape[-1])
         res_stack = [x]
         for level, block in enumerate(self.down_blocks):
-            x, residuals = run(block, level, x, emb, *ctx)
+            x, residuals = run(block, level, x, emb, *ctx,
+                               name=self._down_spans[level])
             res_stack.extend(residuals)
 
-        x = run(self.mid_block, top, x, emb, *ctx)
+        x = run(self.mid_block, top, x, emb, *ctx, name="unet.mid")
 
         for i, block in enumerate(self.up_blocks):
             n = len(block.resnets)
             skips = tuple(res_stack[-n:])
             del res_stack[-n:]
             # up level i mirrors down level (top - i) in resolution
-            x = run(block, top - i, x, skips, emb, *ctx)
+            x = run(block, top - i, x, skips, emb, *ctx,
+                    name=self._up_spans[i])
 
         return _unit(head, edges, x)

@@ -1,10 +1,13 @@
-"""Metrics, profiling and preemption handling for the training loops.  Port
-of asva_tpu/observability.py:
+"""Metrics, spans, profiling and preemption handling.  Port of
+asva_tpu/observability.py, and the port's own spans:
 
   * MetricsLogger — append-only JSONL metrics stream, optionally mirrored to
     wandb when it is importable; written by rank 0 only;
+  * span / traced / count / tracing — the program's spans at its layer
+    boundaries and its counters, recorded in memory only inside
+    `tracing()`, on the clock of torch.profiler's traces (Unix ns);
   * profile_steps — a torch.profiler trace around the enclosed steps
-    (a Chrome trace in `logdir`);
+    (a Chrome trace in `logdir`) that carries the program's spans;
   * GracefulShutdown — SIGTERM/SIGINT set `.requested`, so the train loop
     writes a last checkpoint instead of losing its progress; with several
     processes the ranks agree on the flag through the torch.distributed
@@ -13,13 +16,15 @@ of asva_tpu/observability.py:
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import logging
 import os
 import signal
+import threading
 import time
 from datetime import timedelta
-from typing import Optional
+from typing import List, Optional
 
 
 class MetricsLogger:
@@ -67,11 +72,192 @@ class MetricsLogger:
             self._wandb = None
 
 
+# ---------------------------------------------------------------- spans ---
+#
+# Off unless a `tracing()` is open: `span` then returns one shared no-op
+# after one check of _RECORD, and `count` returns at once.  A span never
+# opens a profiler range, so spans cost a profiled run no ranges; the
+# fused sub-layers' launches are counted by ops/fused.LAUNCHES alone.
+
+_RECORD = None      # the open tracing()'s Record, or None
+
+
+def _unix_offset_ns() -> int:
+    """Unix ns minus perf_counter ns, from the closest of a few paired
+    reads: added to a perf_counter_ns reading it gives the clock of
+    torch.profiler's traces (an event's ts in us plus the trace's
+    baseTimeNanoseconds / 1e3)."""
+    best = None
+    for _ in range(5):
+        p0 = time.perf_counter_ns()
+        unix = time.time_ns()
+        p1 = time.perf_counter_ns()
+        if best is None or p1 - p0 < best[0]:
+            best = (p1 - p0, unix - (p0 + p1) // 2)
+    return best[1]
+
+
+class Record:
+    """What one `tracing()` recorded, in memory.
+
+    spans: [name, start_ns, end_ns, parent, thread, unit] per span, its id
+    its index; start and end on the profiler's clock (Unix ns, from
+    perf_counter_ns and an offset read once at switch-on; end None while
+    open); parent the id of the enclosing span on the same thread, -1 for
+    none (the fused sub-layers' backward runs on autograd's thread); thread
+    the native thread id, as the profiler's tid; unit the id of the
+    outermost span on that thread (a request or a step).
+    counts: (name, n, t_ns) samples."""
+
+    def __init__(self):
+        self.offset_ns = _unix_offset_ns()
+        self.spans: List[list] = []
+        self.counts: List[tuple] = []
+        self._lock = threading.Lock()
+        self._local = threading.local()
+
+    def now_ns(self) -> int:
+        return time.perf_counter_ns() + self.offset_ns
+
+    def _thread(self):
+        """This thread's open spans and native id, the id read once a
+        thread: it is a system call, microseconds on some hosts."""
+        local = self._local
+        try:
+            return local.stack, local.tid
+        except AttributeError:
+            local.stack, local.tid = [], threading.get_native_id()
+            return local.stack, local.tid
+
+    def count(self, name: str, n) -> None:
+        self.counts.append((name, int(n), self.now_ns()))
+
+    def trace_events(self, base_ns: int = 0) -> list:
+        """The closed spans as Chrome-trace complete events (category
+        "program_span") and each counter's running total as counter
+        events, at ts = (t - base_ns) / 1e3 us: the frame of a
+        torch.profiler trace whose baseTimeNanoseconds is base_ns."""
+        pid = os.getpid()
+        out = []
+        for i, (name, start, end, parent, tid, _) in enumerate(
+                list(self.spans)):
+            if end is not None:
+                out.append({"ph": "X", "cat": "program_span", "name": name,
+                            "pid": pid, "tid": tid,
+                            "ts": (start - base_ns) / 1e3,
+                            "dur": (end - start) / 1e3,
+                            "args": {"id": i, "parent": parent}})
+        running = {}
+        for name, n, t in list(self.counts):
+            running[name] = running.get(name, 0) + n
+            out.append({"ph": "C", "cat": "program_counter", "name": name,
+                        "pid": pid, "ts": (t - base_ns) / 1e3,
+                        "args": {name: running[name]}})
+        return out
+
+
+class _Span:
+    __slots__ = ("record", "name", "id")
+
+    def __init__(self, record: Record, name: str):
+        self.record, self.name = record, name
+
+    def __enter__(self):
+        rec = self.record
+        stack, tid = rec._thread()
+        parent = stack[-1] if stack else -1
+        with rec._lock:
+            self.id = len(rec.spans)
+            unit = rec.spans[parent][5] if parent >= 0 else self.id
+            rec.spans.append([self.name, rec.now_ns(), None, parent, tid,
+                              unit])
+        stack.append(self.id)
+        return self
+
+    def __exit__(self, *exc):
+        # into its own record, even where tracing() has closed meanwhile
+        self.record.spans[self.id][2] = self.record.now_ns()
+        self.record._thread()[0].pop()
+        return False
+
+
+class _Off:
+    """The shared no-op that `span` returns while tracing is off."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str):
+    """A context manager: a span of the program named `name` while a
+    `tracing()` is open, else the shared no-op (`traced` decorates)."""
+    if _RECORD is None:
+        return _OFF
+    return _Span(_RECORD, name)
+
+
+def traced(name: str):
+    """A decorator: each call of the function inside `span(name)`.  (The
+    no-op that `span` returns while off carries no name, so it cannot
+    stand for a decoration made at import.)"""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if _RECORD is None:
+                return fn(*args, **kwargs)
+            with _Span(_RECORD, name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def count(name: str, n=1) -> None:
+    """Add n to the counter `name` while a `tracing()` is open."""
+    if _RECORD is None:
+        return
+    _RECORD.count(name, n)
+
+
+@contextlib.contextmanager
+def tracing():
+    """Record the program's spans and counters for the extent of the
+    block, and yield the Record.  Inside an open one, the same Record,
+    which the outer block closes."""
+    global _RECORD
+    if _RECORD is not None:
+        yield _RECORD
+        return
+    _RECORD = record = Record()
+    try:
+        yield record
+    finally:
+        _RECORD = None
+
+
+def add_spans_to_trace(path: str, record: Record) -> None:
+    """Append the record's spans and counters to the Chrome trace at
+    `path` (torch.profiler's export), in its frame of time."""
+    with open(path) as f:
+        trace = json.load(f)
+    trace["traceEvents"].extend(record.trace_events(
+        int(trace.get("baseTimeNanoseconds", 0))))
+    with open(path, "w") as f:
+        json.dump(trace, f)
+
+
 @contextlib.contextmanager
 def profile_steps(logdir: Optional[str]):
     """Capture a torch.profiler trace (host, and the card when there is one)
-    of the enclosed steps into `logdir`/trace.json; no-op if logdir is
-    falsy."""
+    of the enclosed steps into `logdir`/trace.json, with the program's
+    spans and counters of the same steps (`tracing()` is on for the
+    extent); no-op if logdir is falsy."""
     if not logdir:
         yield
         return
@@ -82,12 +268,15 @@ def profile_steps(logdir: Optional[str]):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     prof = profile(activities=activities)
+    path = os.path.join(logdir, "trace.json")
     prof.start()
     try:
-        yield
+        with tracing() as record:
+            yield
     finally:
         prof.stop()
-        prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+        prof.export_chrome_trace(path)
+        add_spans_to_trace(path, record)
 
 
 class GracefulShutdown:

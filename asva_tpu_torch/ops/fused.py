@@ -49,7 +49,8 @@ are the same on both devices, with the plain B4/B5 inside on the CPU.
 Weights stay in torch Linear layout (out, in) and are read in place;
 parameters stored in another dtype than x are cast at use (`w.to(x.dtype)`,
 as asva_tpu casts its fp32 parameters).  `LAUNCHES` counts each wrapper's
-kernel launches.
+kernel launches.  The wrappers of B1-B3, and the backward rules of B1
+and B3, run inside the spans "fused.B1" - "fused.B3" (observability).
 """
 from __future__ import annotations
 
@@ -59,6 +60,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ..observability import traced
 from . import cuda_build, remat
 from .norms import layer_norm_rows
 
@@ -684,6 +686,7 @@ class _LnAttn(torch.autograd.Function):
 
     @staticmethod
     @torch.autograd.function.once_differentiable
+    @traced("fused.B1")
     def backward(ctx, g):
         x, ls, lb, wq, wo, bo, k, v, o, lse = ctx.saved_tensors
         eps, num_heads, kv_len = ctx.statics
@@ -730,6 +733,7 @@ class _LnGeglu(torch.autograd.Function):
 
     @staticmethod
     @torch.autograd.function.once_differentiable
+    @traced("fused.B3")
     def backward(ctx, g):
         eps = ctx.eps
         return _plain_vjp(lambda *a: ln_geglu_plain(*a, eps),
@@ -790,6 +794,7 @@ def mha_kvshared(q, k, v, num_heads: int, kv_len: Optional[int],
     return _MhaKvShared.apply(q, k, v, num_heads, kv_len, scale)
 
 
+@traced("fused.B3")
 def fused_ln_geglu(x, ls, lb, wi, bi, wo, bo, eps: float) -> torch.Tensor:
     """B3: x (M, C) -> x + FF(LN(x)).  ls/lb (C,), wi (2*inner, C) with
     [value; gate] rows, bi (2*inner,), wo (C, inner), bo (C,)."""
@@ -797,6 +802,7 @@ def fused_ln_geglu(x, ls, lb, wi, bi, wo, bo, eps: float) -> torch.Tensor:
     return _LnGeglu.apply(*args, eps)
 
 
+@traced("fused.B1")
 def fused_ln_attn(x, ls, lb, wq, wo, bo, k, v, eps: float, num_heads: int,
                   kv_len: Optional[int] = None) -> torch.Tensor:
     """B1: x (G, M, C) -> x + Wo MHA(Wq LN(x), k, v) + bo.  wq/wo (C, C)
@@ -807,6 +813,7 @@ def fused_ln_attn(x, ls, lb, wq, wo, bo, k, v, eps: float, num_heads: int,
     return _LnAttn.apply(*args, eps, num_heads, kv_len)
 
 
+@traced("fused.B2")
 def fused_ln_attn3(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
                    lsa, lba, wqa, woa, boa, ka, va,
                    lst, lbt, wqt, wot, bot, kt, vt,

@@ -42,6 +42,8 @@ from typing import Iterable, List
 
 import torch
 
+from ..observability import span
+
 BUCKET_BYTES = 25 * 2 ** 20
 
 
@@ -89,8 +91,9 @@ def all_reduce_mean_(tensors: Iterable[torch.Tensor], mesh) -> int:
         return 0
 
     def mean(flat):
-        dist.all_reduce(flat)
-        flat.div_(mesh.world)
+        with span("comm.all_reduce"):
+            dist.all_reduce(flat)
+            flat.div_(mesh.world)
     return _bucketed_(tensors, mean)
 
 

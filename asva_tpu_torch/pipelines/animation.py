@@ -39,6 +39,7 @@ from ..diffusion.samplers import (ddim_plan, init_state, plan_row_arrays,
                                   plms_plan, sampler_step)
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.imagebind_audio import segment_token_indices
+from ..observability import span, traced
 from ..ops.mel import waveform_to_mel
 from ..parallel.reduce import all_gather_frames, all_gather_shards
 
@@ -82,6 +83,7 @@ class AnimationPipeline:
             self._null_audio = enc
         return self._null_audio
 
+    @traced("pipe.encode_audio")
     @torch.no_grad()
     def encode_audio(self, mels: torch.Tensor):
         """mels (b, 128, 204, 1) -> (encodings (b, 229, e),
@@ -94,6 +96,7 @@ class AnimationPipeline:
         s = self.vae.downscale
         return b, h // s, w // s, self.vae.config.latent_channels
 
+    @traced("pipe.encode_image")
     @torch.no_grad()
     def encode_image(self, images: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
@@ -109,6 +112,7 @@ class AnimationPipeline:
         return self.vae.sample_latents(images * 2.0 - 1.0,
                                        noise.to(self.device))
 
+    @traced("pipe.decode_latents")
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
         """(b, f, hh, ww, 4) scaled latents -> (b, f, h, w, 3) in [0, 1]."""
@@ -120,6 +124,7 @@ class AnimationPipeline:
 
     # ---------------- denoise loop ----------------
 
+    @traced("pipe.denoise")
     @torch.no_grad()
     def denoise(self, latents, text_ctx, null_text_ctx, audio_ctx,
                 null_audio_ctx, audio_token_indices, num_steps: int,
@@ -154,25 +159,31 @@ class AnimationPipeline:
             text_stack, audio_stack, k = text_ctx, audio_ctx, 1
 
         state = init_state(plan, latents, step_slice=sl)
+        # every line of the loop lies in a span: the UNet call or the
+        # sampler's work around it
         for row in plan_row_arrays(plan):
-            x = torch.cat([state.latents] * k)
-            t = torch.full((k * b,), int(row["t_model"]), dtype=torch.long,
-                           device=latents.device)
-            eps = self.unet(x, t, text_stack, audio_stack,
-                            audio_token_indices=audio_token_indices,
-                            fuse_blocks=True, frames=frames)
-            if do_text and do_audio:
-                e_u, e_t, e_ta = eps.chunk(3)
-                eps = e_u + text_gs * (e_t - e_u) + audio_gs * (e_ta - e_t)
-            elif do_text:
-                e_a, e_ta = eps.chunk(2)
-                eps = e_a + text_gs * (e_ta - e_a)
-            elif do_audio:
-                e_t, e_ta = eps.chunk(2)
-                eps = e_t + audio_gs * (e_ta - e_t)
-            state = sampler_step(plan.kind, row, state, eps[:, sl],
-                                 step_slice=sl,
-                                 prediction_type=self.schedule.prediction_type)
+            with span("sampler.step"):
+                x = torch.cat([state.latents] * k)
+                t = torch.full((k * b,), int(row["t_model"]),
+                               dtype=torch.long, device=latents.device)
+            with span("unet.call"):
+                eps = self.unet(x, t, text_stack, audio_stack,
+                                audio_token_indices=audio_token_indices,
+                                fuse_blocks=True, frames=frames)
+            with span("sampler.step"):
+                if do_text and do_audio:
+                    e_u, e_t, e_ta = eps.chunk(3)
+                    eps = (e_u + text_gs * (e_t - e_u)
+                           + audio_gs * (e_ta - e_t))
+                elif do_text:
+                    e_a, e_ta = eps.chunk(2)
+                    eps = e_a + text_gs * (e_ta - e_a)
+                elif do_audio:
+                    e_t, e_ta = eps.chunk(2)
+                    eps = e_t + audio_gs * (e_ta - e_t)
+                state = sampler_step(
+                    plan.kind, row, state, eps[:, sl], step_slice=sl,
+                    prediction_type=self.schedule.prediction_type)
         return state.latents
 
     # ---------------- main entry ----------------

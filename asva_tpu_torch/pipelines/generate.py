@@ -17,6 +17,7 @@ import torch
 
 from ..data.media import MediaReader, media_available, write_video
 from ..data.transforms import sd_video_transform
+from ..observability import span, traced
 from ..ops.mel import waveform_to_mel
 from ..ops.resample import resample
 
@@ -98,6 +99,7 @@ def load_av_clips_uniformly(path: str, video_fps: int, video_num_frame: int,
     return np.stack(videos), waves
 
 
+@traced("gen.request")
 def generate_videos(
     pipeline,
     image_path: str = "",
@@ -135,19 +137,21 @@ def generate_videos(
     dev = pipeline.device
 
     images = audios = None
-    if image_path:
-        images = [load_image(image_path, image_size)] * num_clips_per_video
-    if audio_path:
-        audios = load_audio_clips_uniformly(audio_path, clip_duration,
-                                            num_clips_per_video)
-    if video_path:
-        vids, waves = load_av_clips_uniformly(video_path, video_fps,
-                                              video_num_frame, image_size,
-                                              num_clips_per_video)
-        if images is None:
-            images = [v[0] for v in vids]
-        if audios is None:
-            audios = waves
+    with span("gen.load"):
+        if image_path:
+            images = ([load_image(image_path, image_size)]
+                      * num_clips_per_video)
+        if audio_path:
+            audios = load_audio_clips_uniformly(audio_path, clip_duration,
+                                                num_clips_per_video)
+        if video_path:
+            vids, waves = load_av_clips_uniformly(video_path, video_fps,
+                                                  video_num_frame, image_size,
+                                                  num_clips_per_video)
+            if images is None:
+                images = [v[0] for v in vids]
+            if audios is None:
+                audios = waves
 
     if category_text_encoding is None:
         # the reference CLIP-encodes the category (or empty) string here; a
@@ -162,7 +166,8 @@ def generate_videos(
             device=dev, dtype=torch.float32).reshape(1, 77, 768)
 
     def mel(audio):
-        return waveform_to_mel(torch.as_tensor(audio, device=dev))
+        with span("gen.load"):
+            return waveform_to_mel(torch.as_tensor(audio, device=dev))
 
     def emit(k, video, audio):
         frames = torch.clamp(video.float() * 255.0, 0, 255).to(

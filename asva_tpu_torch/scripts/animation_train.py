@@ -195,7 +195,7 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
                             log_with=cfg.log_with,
                             run_name=os.path.basename(cfg.output_dir))
     shutdown = GracefulShutdown()
-    step = state.step
+    step = timed = state.step   # timed: the last step the timer counted
     micro = step * accum     # the micro-batch counter behind the draws
     acc_grads, acc_count = None, 0
     prof = None
@@ -237,10 +237,11 @@ def train(cfg, dataset, device="cuda", max_steps=None, *,
                 del grads
                 step = state.step
                 pending.append(loss)
-                timer.tick()
                 step_times.append(time.perf_counter())
                 if step % cfg.log_steps == 0:
-                    flush()
+                    flush()      # reads the losses back: the steps are done
+                    timer.tick(step - timed)
+                    timed = step
                     log.info("step %d loss %.4f %.2f steps/s", step,
                              meter.avg, timer.steps_per_sec)
                     metrics.log(step, loss=meter.avg,

@@ -32,6 +32,7 @@ from torch import nn
 
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.imagebind_audio import segment_token_indices
+from ..observability import count, span, traced
 from ..parallel.reduce import all_reduce_mean_
 from ..parallel.sharding import (full_state_dict, is_sharded,
                                  load_full_state_dict)
@@ -138,26 +139,34 @@ class AnimationTrainer:
         waveforms (b, 1, samples) at 16 kHz, text_encodings (b, 77, 768).
         Randomness: `draws` (see `draw`) or, when None, `generator` (this
         rank's rows of the global draw under `mesh`)."""
-        cfg = self.config
         videos = batch["videos"]
         b, f = videos.shape[:2]
         if draws is None:
             if generator is None:
                 raise ValueError("loss_fn needs a generator or the draws")
-            draws = self.draw(batch, generator, mesh)
-        mels = batch.get("mels")
-        if mels is None:  # on-device mel from raw 16 kHz waveforms
-            from ..ops.mel import waveform_to_mel
-            mels = torch.stack([waveform_to_mel(w)
-                                for w in batch["waveforms"]])
+            with span("train.draw"):
+                draws = self.draw(batch, generator, mesh)
+        with span("train.encode"):
+            mels = batch.get("mels")
+            if mels is None:  # on-device mel from raw 16 kHz waveforms
+                from ..ops.mel import waveform_to_mel
+                mels = torch.stack([waveform_to_mel(w)
+                                    for w in batch["waveforms"]])
+            # 1. frozen encoders
+            with torch.no_grad():
+                frames = (videos.reshape((b * f,) + videos.shape[2:])
+                          - 0.5) / 0.5
+                latents = self.vae.sample_latents(frames, draws["vae_noise"])
+                latents = latents.reshape((b, f) + latents.shape[1:])
+                audio_enc = self.audio_encoder(mels)[1]
+                null_audio = self.null_audio_encoding()
+        with span("train.forward"):
+            return self._loss(batch, draws, latents, audio_enc, null_audio)
 
-        # 1. frozen encoders
-        with torch.no_grad():
-            frames = (videos.reshape((b * f,) + videos.shape[2:]) - 0.5) / 0.5
-            latents = self.vae.sample_latents(frames, draws["vae_noise"])
-            latents = latents.reshape((b, f) + latents.shape[1:])
-            audio_enc = self.audio_encoder(mels)[1]
-            null_audio = self.null_audio_encoding()
+    def _loss(self, batch, draws, latents, audio_enc, null_audio):
+        """loss_fn's part after the frozen encoders: the UNet and the
+        loss."""
+        cfg = self.config
         # static per-frame token gather (equal to the boolean segment masks)
         token_idx = segment_token_indices(
             self.audio_encoder.n_segment,
@@ -191,6 +200,7 @@ class AnimationTrainer:
 
     # ---------------- steps ----------------
 
+    @traced("train.grad_step")
     def grad_step(self, state: TrainState, batch: dict,
                   generator: Optional[torch.Generator] = None,
                   draws: Optional[Dict[str, torch.Tensor]] = None,
@@ -199,17 +209,20 @@ class AnimationTrainer:
         trainable-sized, for gradient accumulation; this rank's own under
         `mesh` (`apply_step` takes their mean)."""
         loss = self.loss_fn(batch, generator, draws, mesh)
-        grads = torch.autograd.grad(loss, state.optimizer.params)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, state.optimizer.params)
         return loss.detach(), list(grads)
 
+    @traced("train.apply_step")
     def apply_step(self, state: TrainState, grads: List[torch.Tensor],
                    mesh=None) -> None:
         """One optimizer step.  Across the ranks of `mesh` the gradients
         are first replaced by their mean, once per step and before the
         optimizer's global-norm clip, as the global batch's gradient is
         (an FSDP shard's gradient already is that mean)."""
-        all_reduce_mean_([g for g, p in zip(grads, state.optimizer.params)
-                          if not is_sharded(p)], mesh)
+        count("comm.bytes", all_reduce_mean_(
+            [g for g, p in zip(grads, state.optimizer.params)
+             if not is_sharded(p)], mesh))
         state.optimizer.step(grads)
         state.step += 1
 

@@ -32,6 +32,7 @@ from typing import Dict, Iterable, List, Optional, Sequence
 import torch
 from torch import nn
 
+from ..observability import span
 from ..parallel import sharding
 
 # module-path segments of the torch key space that the reference's
@@ -128,29 +129,32 @@ class AdamW:
             missing = [n for n, g in zip(self.names, grads) if g is None]
             raise ValueError(f"no gradient for trainable parameters "
                              f"{missing[:8]}")
-        grads = [g.float() for g in grads]
-        norm = torch.sqrt(sum((sharding.full_tensor(p, g).square().sum()
-                               for p, g in zip(self.params, grads)),
-                              start=torch.zeros((), device=grads[0].device)))
-        # optax: g if norm < max_norm else (g / norm) * max_norm
-        clip = norm >= self.max_grad_norm
-        grads = [torch.where(clip, (g / norm) * self.max_grad_norm, g)
-                 for g in grads]
+        with span("optim.clip"):
+            grads = [g.float() for g in grads]
+            norm = torch.sqrt(sum(
+                (sharding.full_tensor(p, g).square().sum()
+                 for p, g in zip(self.params, grads)),
+                start=torch.zeros((), device=grads[0].device)))
+            # optax: g if norm < max_norm else (g / norm) * max_norm
+            clip = norm >= self.max_grad_norm
+            grads = [torch.where(clip, (g / norm) * self.max_grad_norm, g)
+                     for g in grads]
         lr = self.lr(self.count)
         self.count += 1
         c1 = 1.0 - self.b1 ** self.count
         c2 = 1.0 - self.b2 ** self.count
-        for i, (p, g) in enumerate(zip(self.params, grads)):
-            # optax decays the stored moment in its own dtype: with a bf16
-            # mu_dtype both b1 and the product are rounded to bf16
-            decayed = self.mu[i] * self.mu[i].new_tensor(self.b1)
-            mu = (1.0 - self.b1) * g + decayed.float()
-            nu = (1.0 - self.b2) * g.square() + self.b2 * self.nu[i]
-            update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
-            update = update + self.weight_decay * p.float()
-            p.add_((-lr * update).to(p.dtype))
-            self.mu[i] = mu.to(self.mu[i].dtype)
-            self.nu[i] = nu
+        with span("optim.adamw"):
+            for i, (p, g) in enumerate(zip(self.params, grads)):
+                # optax decays the stored moment in its own dtype: with a
+                # bf16 mu_dtype both b1 and the product are rounded to bf16
+                decayed = self.mu[i] * self.mu[i].new_tensor(self.b1)
+                mu = (1.0 - self.b1) * g + decayed.float()
+                nu = (1.0 - self.b2) * g.square() + self.b2 * self.nu[i]
+                update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+                update = update + self.weight_decay * p.float()
+                p.add_((-lr * update).to(p.dtype))
+                self.mu[i] = mu.to(self.mu[i].dtype)
+                self.nu[i] = nu
         return norm
 
     def state_dict(self) -> dict:

@@ -65,25 +65,34 @@ class AverageMeter:
 
 
 class StepTimer:
-    """Rolling steps per second.  The host clock only: the caller
-    synchronises the device first where the step's device time is meant."""
+    """Rolling steps per second over the last `window` steps.  The host
+    clock only: the caller synchronises the device before each tick where
+    the steps' device time is meant, and a tick may count several steps
+    (a log boundary's); the newest tick is kept whatever its steps."""
 
     def __init__(self, window: int = 50):
-        self.times = deque(maxlen=window)
+        self.window = window
+        self.times = deque()
+        self.steps = deque()
         self.last = time.perf_counter()
 
-    def tick(self) -> float:
+    def tick(self, steps: int = 1) -> float:
+        """Close an interval of `steps` steps; returns its seconds."""
         now = time.perf_counter()
         dt = now - self.last
         self.last = now
         self.times.append(dt)
+        self.steps.append(steps)
+        while len(self.steps) > 1 and sum(self.steps) > self.window:
+            self.times.popleft()
+            self.steps.popleft()
         return dt
 
     @property
     def steps_per_sec(self) -> float:
         if not self.times:
             return 0.0
-        return len(self.times) / sum(self.times)
+        return sum(self.steps) / sum(self.times)
 
 
 def setup_logging(log_file: Optional[str] = None,
