@@ -4,6 +4,8 @@ Numerics match diffusers' `get_timestep_embedding` and `TimestepEmbedding`.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
@@ -12,17 +14,26 @@ from torch.nn import functional as F
 from ..ops.linear import Linear
 
 
+@functools.lru_cache(maxsize=None)
+def _frequencies(half_dim: int, downscale_freq_shift: float,
+                 max_period: float, device: torch.device) -> torch.Tensor:
+    """(half_dim,) float32 frequencies on `device`, folded in float64 on the
+    host as the JAX version does; made once, so that the embedding copies
+    nothing to the device (a copy from pageable memory waits for the
+    stream, and cannot be captured in a CUDA graph)."""
+    freqs = np.exp(-np.log(max_period) * np.arange(half_dim, dtype=np.float64)
+                   / (half_dim - downscale_freq_shift)).astype(np.float32)
+    return torch.from_numpy(freqs).to(device)
+
+
 def sinusoidal_timestep_embedding(timesteps: torch.Tensor, dim: int,
                                   flip_sin_to_cos: bool = True,
                                   downscale_freq_shift: float = 0.0,
                                   max_period: float = 10000.0) -> torch.Tensor:
     """(N,) timesteps -> (N, dim) float32 sinusoidal embedding."""
-    half_dim = dim // 2
-    # frequencies folded in float64 on the host, as the JAX version does
-    freqs = np.exp(-np.log(max_period) * np.arange(half_dim, dtype=np.float64)
-                   / (half_dim - downscale_freq_shift)).astype(np.float32)
-    emb = (torch.from_numpy(freqs).to(timesteps.device)[None, :]
-           * timesteps.float()[:, None])
+    freqs = _frequencies(dim // 2, float(downscale_freq_shift),
+                         float(max_period), timesteps.device)
+    emb = freqs[None, :] * timesteps.float()[:, None]
     sin, cos = torch.sin(emb), torch.cos(emb)
     emb = torch.cat([cos, sin] if flip_sin_to_cos else [sin, cos], dim=-1)
     if dim % 2 == 1:

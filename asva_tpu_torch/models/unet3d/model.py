@@ -208,6 +208,8 @@ class AudioUNet3D(nn.Module):
                                  for i in range(len(self.down_blocks)))
         self._up_spans = tuple(f"unet.up.{i}"
                                for i in range(len(self.up_blocks)))
+        # the sampler loop's CUDA graphs while one is open (graphs.py)
+        self._graphs = None
 
     def _run_block(self, block, level: int, *args, fsdp: bool = False,
                    name: str = "unet.block"):
@@ -232,7 +234,17 @@ class AudioUNet3D(nn.Module):
         """sample (b, f, h, w, c_in) -> eps (b, f, h, w, c_out).
         fuse_blocks=True is the generation variant (B2 per block).  With
         `frames` (a FrameShard), sample holds this rank's f frames of the
-        global video, and the audio mask or token indices are global."""
+        global video, and the audio mask or token indices are global.
+        Inside `graphs.segmented(self, calls)` the call may be a replay of
+        CUDA graphs (models/unet3d/graphs.py)."""
+        args = (sample, timesteps, text_context, audio_context, audio_mask,
+                audio_token_indices, fuse_blocks, frames)
+        if self._graphs is not None:
+            return self._graphs(self._forward, *args)
+        return self._forward(*args)
+
+    def _forward(self, sample, timesteps, text_context, audio_context,
+                 audio_mask, audio_token_indices, fuse_blocks, frames):
         cfg = self.config
         b, f = sample.shape[:2]
         dtype = self.compute_dtype or self.conv_in.weight.dtype

@@ -34,6 +34,7 @@ backward: frame sharding is for generation.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -256,6 +257,26 @@ def mask_to_token_indices(mask) -> np.ndarray:
     return np.stack([np.nonzero(row)[0] for row in mask]).astype(np.int64)
 
 
+@functools.lru_cache(maxsize=64)
+def _indices_on(data: bytes, shape: tuple, device: torch.device):
+    return torch.from_numpy(
+        np.frombuffer(data, np.int64).reshape(shape).copy()).to(device)
+
+
+def token_indices_on(indices, device) -> torch.Tensor:
+    """The (f, m) token indices as a long tensor on `device`: a long tensor
+    there is returned as it is; a numpy array or list is copied once per
+    distinct value and device (cached), so that a forward that is handed
+    host indices copies nothing to the device after its first (a copy from
+    pageable memory waits for the stream, and cannot be captured in a
+    CUDA graph)."""
+    device = torch.device(device)
+    if torch.is_tensor(indices):
+        return indices.to(device=device, dtype=torch.long)
+    idx = np.ascontiguousarray(indices, dtype=np.int64)
+    return _indices_on(idx.tobytes(), idx.shape, device)
+
+
 class CrossAttention(MultiHeadProjections):
     """Cross attention of (b, f, n, c) tokens over a context that is shared
     by the frames, (b, m, d), or per frame, (b, f, m, d).  With
@@ -273,8 +294,7 @@ class CrossAttention(MultiHeadProjections):
                 context_indices=None) -> tuple:
         k, v = self.to_k(context), self.to_v(context)    # (b, m, c)
         if context_indices is not None:
-            idx = torch.as_tensor(np.asarray(context_indices),
-                                  dtype=torch.long, device=context.device)
+            idx = token_indices_on(context_indices, context.device)
             k, v = k[:, idx], v[:, idx]                  # (b, f, m_tok, c)
         return self._bundle(ln, k, v)
 
@@ -306,8 +326,7 @@ class CrossAttention(MultiHeadProjections):
         q, k, v = self.to_q(x), self.to_k(context), self.to_v(context)
         shared = k.dim() == q.dim() - 1                  # (b, m, c)
         if context_indices is not None and shared:
-            idx = torch.as_tensor(np.asarray(context_indices),
-                                  dtype=torch.long, device=context.device)
+            idx = token_indices_on(context_indices, context.device)
             k, v = k[:, idx], v[:, idx]                  # (b, f, m_tok, c)
             mask, shared = None, False
         elif mask is None and shared and q.dim() == 4:

@@ -51,6 +51,10 @@ parameters stored in another dtype than x are cast at use (`w.to(x.dtype)`,
 as asva_tpu casts its fp32 parameters).  `LAUNCHES` counts each wrapper's
 kernel launches.  The wrappers of B1-B3, and the backward rules of B1
 and B3, run inside the spans "fused.B1" - "fused.B3" (observability).
+The three also take `out=`, a buffer like x that receives the result
+where no gradient is due: the sampler loop's CUDA graphs
+(models/unet3d/graphs.py) call them between graphs, into the buffer the
+next graph reads.
 """
 from __future__ import annotations
 
@@ -449,28 +453,44 @@ def _q_cuda(lib, x, ls, lb, wq, eps):
     return q
 
 
-def _out_cuda(lib, x, o, wo, bo):
-    """K-gemm(+bo, +x): B1's last launch."""
+def _out_cuda(lib, x, o, wo, bo, out=None):
+    """K-gemm(+bo, +x): B1's last launch, into `out` where given."""
     g, m, c = x.shape
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
     _gemm(lib, "out", o.view(g * m, c), None, None, 0.0, wo, bo,
           x.view(g * m, c), out.view(g * m, c))
     return out
 
 
-def _ln_attn_cuda(lib, x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len):
+def _ln_attn_cuda(lib, x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len,
+                  out=None):
     """K-gemm(LN, q) -> K-attn -> K-gemm(+bo, +x) -> out."""
     _check_sublayer(x, ls, lb, wq, wo, bo, k, v)
     _attn_geometry(x, k, v, num_heads, kv_len)   # before the first launch
     q = _q_cuda(lib, x, ls, lb, wq, eps)
     o, _ = _mha_fwd_cuda(lib, q, k, v, num_heads, kv_len,
                          1.0 / math.sqrt(x.shape[-1] // num_heads), False)
-    return _out_cuda(lib, x, o, wo, bo)
+    return _out_cuda(lib, x, o, wo, bo, out)
 
 
-def _ln_geglu_fwd(x, ls, lb, wi, bi, wo, bo, eps):
+def _into(out, x):
+    """Check a caller's output buffer: x's shape, dtype and device,
+    contiguous (None passes)."""
+    if out is not None:
+        _check((out,), x.dtype, x.device)
+        _check_shape("out", out, x.shape)
+    return out
+
+
+def _plain_into(out, y):
+    return y if out is None else out.copy_(y)
+
+
+def _ln_geglu_fwd(x, ls, lb, wi, bi, wo, bo, eps, out=None):
     if x.device.type == "cpu":
-        return ln_geglu_plain(x, ls, lb, wi, bi, wo, bo, eps)
+        return _plain_into(_into(out, x),
+                           ln_geglu_plain(x, ls, lb, wi, bi, wo, bo, eps))
     lib = _prepare(x, ls, lb, wi, bi, wo, bo)
     m, c = x.shape
     inner = wo.shape[1]
@@ -478,22 +498,24 @@ def _ln_geglu_fwd(x, ls, lb, wi, bi, wo, bo, eps):
                            ("wi", wi, (2 * inner, c)), ("bi", bi, (2 * inner,)),
                            ("wo", wo, (c, inner)), ("bo", bo, (c,))):
         _check_shape(name, t, shape)
+    if _into(out, x) is None:
+        out = torch.empty_like(x)
     h = torch.empty((m, inner), dtype=x.dtype, device=x.device)
     _gemm(lib, "ff1", x, ls, lb, eps, wi, bi, None, h)
-    out = torch.empty_like(x)
     _gemm(lib, "ff2", h, None, None, 0.0, wo, bo, x, out)
     LAUNCHES["B3"] += 1
     return out
 
 
-def _ln_attn_fwd(x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len):
+def _ln_attn_fwd(x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len,
+                 out=None):
     """B1's forward without a graph: the attention runs without lse."""
     if x.device.type == "cpu":
-        return ln_attn_plain(x, ls, lb, wq, wo, bo, k, v, eps, num_heads,
-                             kv_len)
+        return _plain_into(_into(out, x), ln_attn_plain(
+            x, ls, lb, wq, wo, bo, k, v, eps, num_heads, kv_len))
     lib = _prepare(x)
     out = _ln_attn_cuda(lib, x, ls, lb, wq, wo, bo, k, v, eps, num_heads,
-                        kv_len)
+                        kv_len, _into(out, x))
     LAUNCHES["B1"] += 1
     return out
 
@@ -523,13 +545,14 @@ def _attn_out(x, o, wo, bo):
 
 def _ln_attn3_fwd(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
                   lsa, lba, wqa, woa, boa, ka, va,
-                  lst, lbt, wqt, wot, bot, kt, vt, eps3, num_heads, kv_lens):
+                  lst, lbt, wqt, wot, bot, kt, vt, eps3, num_heads, kv_lens,
+                  out=None):
     if x.device.type == "cpu":
-        return ln_attn3_plain(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
-                              lsa, lba, wqa, woa, boa, ka, va,
-                              lst, lbt, wqt, wot, bot, kt, vt,
-                              eps3, num_heads, kv_lens)
+        return _plain_into(_into(out, x), ln_attn3_plain(
+            x, ls1, lb1, wq1, wo1, bo1, k1, v1, lsa, lba, wqa, woa, boa, ka,
+            va, lst, lbt, wqt, wot, bot, kt, vt, eps3, num_heads, kv_lens))
     lib = _prepare(x)
+    _into(out, x)
     b, f, n, c = x.shape
     if ka.dim() != 4 or tuple(ka.shape[:2]) != (b, f):
         raise ValueError(f"audio K/V must be (B, F, Ska, C), got "
@@ -541,9 +564,10 @@ def _ln_attn3_fwd(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
                       va.reshape((b * f,) + va.shape[2:]),
                       eps3[1], num_heads, kv_lens[1])
     h = _ln_attn_cuda(lib, h.view(b, f * n, c), lst, lbt, wqt, wot, bot,
-                      kt, vt, eps3[2], num_heads, kv_lens[2])
+                      kt, vt, eps3[2], num_heads, kv_lens[2],
+                      None if out is None else out.view(b, f * n, c))
     LAUNCHES["B2"] += 1
-    return h.view(b, f, n, c)
+    return h.view(b, f, n, c) if out is None else out
 
 
 # B7's loaders of A in csrc/mix.cu, in order of preference: FRAME (every tile
@@ -794,22 +818,40 @@ def mha_kvshared(q, k, v, num_heads: int, kv_len: Optional[int],
     return _MhaKvShared.apply(q, k, v, num_heads, kv_len, scale)
 
 
+def _no_graph(args):
+    """out= writes a caller's buffer, which autograd cannot follow."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in args if torch.is_tensor(t)):
+        raise ValueError("out= takes no input that requires grad under grad "
+                         "mode")
+
+
 @traced("fused.B3")
-def fused_ln_geglu(x, ls, lb, wi, bi, wo, bo, eps: float) -> torch.Tensor:
+def fused_ln_geglu(x, ls, lb, wi, bi, wo, bo, eps: float,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B3: x (M, C) -> x + FF(LN(x)).  ls/lb (C,), wi (2*inner, C) with
-    [value; gate] rows, bi (2*inner,), wo (C, inner), bo (C,)."""
+    [value; gate] rows, bi (2*inner,), wo (C, inner), bo (C,).  `out`, a
+    contiguous tensor like x, receives the result and is returned (no
+    gradient then)."""
     args = (x,) + _cast(x, ls, lb, wi, bi, wo, bo)
+    if out is not None:
+        _no_graph(args)
+        return _ln_geglu_fwd(*args, eps, out=out)
     return _LnGeglu.apply(*args, eps)
 
 
 @traced("fused.B1")
 def fused_ln_attn(x, ls, lb, wq, wo, bo, k, v, eps: float, num_heads: int,
-                  kv_len: Optional[int] = None) -> torch.Tensor:
+                  kv_len: Optional[int] = None,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B1: x (G, M, C) -> x + Wo MHA(Wq LN(x), k, v) + bo.  wq/wo (C, C)
     in Linear layout, k/v (G, Sk, C) pre-projected; key columns >= kv_len
     are masked (None: all Sk).  When a gradient is needed the attention runs
-    as B4 and the backward as B5."""
+    as B4 and the backward as B5.  `out` as in fused_ln_geglu."""
     args = (x,) + _cast(x, ls, lb, wq, wo, bo) + (k, v)
+    if out is not None:
+        _no_graph(args)
+        return _ln_attn_fwd(*args, eps, num_heads, kv_len, out=out)
     return _LnAttn.apply(*args, eps, num_heads, kv_len)
 
 
@@ -818,13 +860,17 @@ def fused_ln_attn3(x, ls1, lb1, wq1, wo1, bo1, k1, v1,
                    lsa, lba, wqa, woa, boa, ka, va,
                    lst, lbt, wqt, wot, bot, kt, vt,
                    eps3: Sequence[float], num_heads: int,
-                   kv_lens: Sequence[Optional[int]] = (None, None, None)):
+                   kv_lens: Sequence[Optional[int]] = (None, None, None),
+                   out: Optional[torch.Tensor] = None):
     """B2: attn1 + audio-x + text-x on x (B, F, N, C); see ln_attn3_plain
-    for the K/V layouts."""
+    for the K/V layouts.  `out` as in fused_ln_geglu."""
     args = ((x,) + _cast(x, ls1, lb1, wq1, wo1, bo1) + (k1, v1)
             + _cast(x, lsa, lba, wqa, woa, boa) + (ka, va)
             + _cast(x, lst, lbt, wqt, wot, bot) + (kt, vt))
     eps3, kv_lens = tuple(eps3), tuple(kv_lens)
+    if out is not None:
+        _no_graph(args)
+        return _ln_attn3_fwd(*args, eps3, num_heads, kv_lens, out=out)
     return _LnAttn3.apply(eps3, num_heads, kv_lens, *args)
 
 

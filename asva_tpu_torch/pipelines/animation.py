@@ -11,6 +11,11 @@
     the sampler steps frames 1..f-1 only;
   * VAE decode.
 
+The denoise loop's UNet calls on a card are replayed as CUDA-graph segments
+between the fused sub-layers (`models/unet3d/graphs.py`), for the loop's
+extent only: where the tensors are on CUDA, gradients are off, no frame
+context is given and the loop makes 2 calls or more; else they run eagerly.
+
 Randomness comes from an explicit `torch.Generator`, or is handed in as
 `vae_noise` / `latent_noise` (parity tests feed the JAX draws); nothing is
 drawn when both are given.
@@ -32,13 +37,14 @@ from __future__ import annotations
 import warnings
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 
 from ..diffusion.samplers import (ddim_plan, init_state, plan_row_arrays,
                                   plms_plan, sampler_step)
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.imagebind_audio import segment_token_indices
+from ..models.unet3d import graphs
+from ..models.unet3d.primitives import token_indices_on
 from ..observability import span, traced
 from ..ops.mel import waveform_to_mel
 from ..parallel.reduce import all_gather_frames, all_gather_shards
@@ -159,31 +165,33 @@ class AnimationPipeline:
             text_stack, audio_stack, k = text_ctx, audio_ctx, 1
 
         state = init_state(plan, latents, step_slice=sl)
+        rows = plan_row_arrays(plan)
         # every line of the loop lies in a span: the UNet call or the
         # sampler's work around it
-        for row in plan_row_arrays(plan):
-            with span("sampler.step"):
-                x = torch.cat([state.latents] * k)
-                t = torch.full((k * b,), int(row["t_model"]),
-                               dtype=torch.long, device=latents.device)
-            with span("unet.call"):
-                eps = self.unet(x, t, text_stack, audio_stack,
-                                audio_token_indices=audio_token_indices,
-                                fuse_blocks=True, frames=frames)
-            with span("sampler.step"):
-                if do_text and do_audio:
-                    e_u, e_t, e_ta = eps.chunk(3)
-                    eps = (e_u + text_gs * (e_t - e_u)
-                           + audio_gs * (e_ta - e_t))
-                elif do_text:
-                    e_a, e_ta = eps.chunk(2)
-                    eps = e_a + text_gs * (e_ta - e_a)
-                elif do_audio:
-                    e_t, e_ta = eps.chunk(2)
-                    eps = e_t + audio_gs * (e_ta - e_t)
-                state = sampler_step(
-                    plan.kind, row, state, eps[:, sl], step_slice=sl,
-                    prediction_type=self.schedule.prediction_type)
+        with graphs.segmented(self.unet, len(rows)):
+            for row in rows:
+                with span("sampler.step"):
+                    x = torch.cat([state.latents] * k)
+                    t = torch.full((k * b,), int(row["t_model"]),
+                                   dtype=torch.long, device=latents.device)
+                with span("unet.call"):
+                    eps = self.unet(x, t, text_stack, audio_stack,
+                                    audio_token_indices=audio_token_indices,
+                                    fuse_blocks=True, frames=frames)
+                with span("sampler.step"):
+                    if do_text and do_audio:
+                        e_u, e_t, e_ta = eps.chunk(3)
+                        eps = (e_u + text_gs * (e_t - e_u)
+                               + audio_gs * (e_ta - e_t))
+                    elif do_text:
+                        e_a, e_ta = eps.chunk(2)
+                        eps = e_a + text_gs * (e_ta - e_a)
+                    elif do_audio:
+                        e_t, e_ta = eps.chunk(2)
+                        eps = e_t + audio_gs * (e_ta - e_t)
+                    state = sampler_step(
+                        plan.kind, row, state, eps[:, sl], step_slice=sl,
+                        prediction_type=self.schedule.prediction_type)
         return state.latents
 
     # ---------------- main entry ----------------
@@ -252,9 +260,8 @@ class AnimationPipeline:
                 f"audio encoder n_segment={audio_masks.shape[1]} must equal "
                 f"video_length={video_length}")
         # the static per-frame token gather equals the boolean segment masks
-        token_idx = segment_token_indices(
-            video_length, self.audio_encoder.config.patch_grid).astype(
-                np.int64)
+        token_idx = token_indices_on(segment_token_indices(
+            video_length, self.audio_encoder.config.patch_grid), dev)
         text_encodings = text_encodings.to(dev)
         if self.null_text_encoding is not None:
             null_text = self.null_text_encoding.to(dev)
