@@ -4,7 +4,10 @@ readers; the record that the metric readers read; the checks on the
 process; and the result line.
 
 Files found by name (a later cell adds files and entries, and edits none):
-  benchmark/configs/<config>.json   the configuration as it is run
+  benchmark/configs/<config>.json   the configuration as it is run; the
+                                    cell's kind reads the groups it needs
+                                    (a model without an audio tower has
+                                    no "audio" group)
   benchmark/traffic/<traffic>.json  the mix; its "kind" names the driver
                                     benchmark/kinds/<kind>.py
   benchmark/limits/<workload>.json  each compared number's limit
@@ -70,8 +73,9 @@ def _mine(metric: dict, workload: str) -> bool:
     return "workloads" not in metric or workload in metric["workloads"]
 
 
-# what the port's mel and the reference's take as fixed: a configuration
-# that states otherwise is refused, not run as these
+# what the port's mel and the reference's take as fixed where a
+# configuration has an audio tower: one that states otherwise, or leaves a
+# key out, is refused, not run as these
 FIXED = {"audio_sample_rate": 16000, "audio_seconds_per_clip": 2.0}
 
 
@@ -83,10 +87,11 @@ def load_cell(workload: str, root: str = ROOT) -> Cell:
     w = cells[workload]
     cfg_entry = {c["name"]: c for c in spec["configs"]}[w["config"]]
     config = _json(os.path.join(root, cfg_entry["file"]))
-    for key, value in FIXED.items():
-        if config[key] != value:
-            raise ValueError(f"{cfg_entry['name']}: {key} {config[key]}; "
-                             f"the port and the reference take {value}")
+    for key, value in (FIXED.items() if "audio" in config else ()):
+        if config.get(key) != value:
+            raise ValueError(f"{cfg_entry['name']}: {key} "
+                             f"{config.get(key, 'left out')}; the port and "
+                             f"the reference take {value}")
     traffic = _json(os.path.join(BENCH, "traffic",
                                  _checked(w["traffic"]) + ".json"))
     limits = _json(os.path.join(BENCH, "limits", _checked(workload) + ".json"))
@@ -115,12 +120,17 @@ class Record:
 
     events: {name: [milliseconds]} from CUDA-event pairs;
     values: {name: number} (window seconds, clips, steps, model FLOPs);
-    trace:  the profiled stretch's summary (trace.py), or None."""
+    trace:  the profiled stretch's summary (trace.py), or None;
+    spans:  its fourth segment with the program's spans and counters
+            (spans.reduce_spans, the ranks merged), or None;
+    request_spans: one whole generation request the same way, or None."""
 
     def __init__(self):
         self.events: Dict[str, List[float]] = defaultdict(list)
         self.values: Dict[str, float] = {}
         self.trace = None
+        self.spans = None
+        self.request_spans = None
 
 
 def per_layer_metrics(cell: Cell, rec: Record) -> dict:
@@ -252,8 +262,11 @@ class Run:
 
 
 def _free_port() -> int:
+    """A port that no socket on any address holds now: the store's server
+    listens on every address, so a port free on the loopback alone (one
+    that a finished run's connection still holds elsewhere) can refuse it."""
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
+        s.bind(("", 0))
         return s.getsockname()[1]
 
 
@@ -317,7 +330,13 @@ def start_ranks(cell: Cell, script: str, argv) -> Tuple[int, str, list]:
     rank = int(os.environ.get("RANK", "0"))
     if cell.chips > 1:
         from asva_tpu_torch.parallel import multihost
-        multihost.maybe_initialize_distributed("cuda")
+        try:
+            multihost.maybe_initialize_distributed("cuda")
+        except BaseException:
+            for p in procs:              # none waits for this rank forever
+                p.kill()
+                p.wait()
+            raise
     device = f"cuda:{rank}"
     torch.cuda.set_device(device)
     return rank, device, procs

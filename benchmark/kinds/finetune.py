@@ -235,7 +235,8 @@ def run(R: Run) -> Outcome:
                                            "MIN")
         for name in timers:
             delattr(trainer, name)
-        rec.trace, breakdown = stretch(R, fused, step, tr["stretch_units"])
+        rec.trace, rec.spans, breakdown = stretch(R, fused, step,
+                                                  tr["stretch_units"])
     peak = int(_across([float(peak)], R)[0])
     del trainer, state, pool
     gc.collect()

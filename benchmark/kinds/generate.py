@@ -10,8 +10,10 @@ the window is open; gen_clips_per_s is their clips over the time from the
 window's start to the end of the last.  Traced run: the window again with
 CUDA events around every request, `denoise` and UNet call, then one more
 request whose UNet calls from `stretch_first_call` on are the units
-of a profiled stretch of `stretch_units` (trace.Stretch).  Check: one request of the window, drawn from the seed, against
-the plain reference run on the same files and seed.
+of a profiled stretch of `stretch_units` (trace.Stretch), and one more
+whole request read with the program's spans (spans.request_segment).
+Check: one request of the window, drawn from the seed, against the plain
+reference run on the same files and seed.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import time
 import numpy as np
 import torch
 
-from .. import media, sublayers, trace, weights, work
+from .. import media, spans, sublayers, trace, weights, work
 from ..harness import Outcome, Record, Run, Timer, dataclass_kwargs, sub_seed
 from ..reference.ops import no_tf32
 from ..reference.pipeline import Generator
@@ -149,9 +151,13 @@ def run(R: Run) -> Outcome:
             rec.events[k] = t.ms()
         for h in hooks:
             h.remove()
-        rec.trace, breakdown = stretch(R, pipe, fused, request,
-                                       len(outputs), tr["stretch_first_call"],
-                                       tr["stretch_units"])
+        rec.trace, rec.spans, breakdown = stretch(
+            R, pipe, fused, request, len(outputs), tr["stretch_first_call"],
+            tr["stretch_units"])
+        rec.request_spans = spans.request_segment(R, request, len(outputs))
+        if breakdown is not None and rec.request_spans is not None:
+            breakdown["request_idle_by_span"] = \
+                rec.request_spans["idle_by_span"][:10]
     n = len(outputs)
     checked = random.Random(R.seed).randrange(n)
     program = outputs[checked]

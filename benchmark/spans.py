@@ -1,44 +1,37 @@
-"""The program's own spans read against the device trace: a fourth segment
-of trace.Stretch, a segment of one whole request, and the reducer that
-puts each idle gap of the device down to a span of the program
-(asva_tpu_torch/observability.py).
+"""The program's own spans read against the device trace: the reducer that
+puts each idle gap of the device down to the spans of the program
+(asva_tpu_torch/observability.py) open over it, the clock fit it needs,
+and the segment of one whole generation request.
 
-SpanStretch runs trace.Stretch's 3n + 1 units unchanged, then n + 1 more:
-
-  unit 3n + 1         a fresh device-only profiler starts, as segment 2's
-                      does, and the program's recorder is switched on
-                      (`observability.tracing()`), so that the spans open
-                      when the span below starts are recorded too;
-  units [3n+2, 4n+2)  the span, between mark kernels as in segment 2.  Each
-                      idle gap of the device (the span less the union of
-                      the device operations) is put down to the innermost
-                      program span open at the gap's middle, on the
-                      profiler's clock: on each thread the innermost open
-                      one, and of the threads' the one opened last (the
-                      fused sub-layers' backward runs on autograd's
-                      thread).
+trace.Stretch runs the fourth segment of every traced run with these
+(trace.py's docstring): its units are device-only profiled between mark
+kernels with the program's recorder on, and each idle gap of the device
+(the span less the union of the device operations) is put down to the
+program's spans open at one instant, on the profiler's clock: on each
+thread the innermost open one, and of the threads' the one opened last
+(the fused sub-layers' backward runs on autograd's thread).  The instant
+is the gap's middle where the card waited for the host to launch the
+operation that ends the gap, and that launch where the operation was
+queued before the gap began (a card ahead of its host: the gap lies
+between operations that those spans sent).  The reduced segment, the
+ranks merged, is the `Record`'s `spans`, which the per-layer readers
+read (`idle_ms`).
 
 request_segment runs one more whole generation request between two mark
 kernels, device-only profiled with the recorder on: the idle time under
 loading, the encoders and the decode, which the UNet calls of the fourth
-segment do not reach.
+segment do not reach (the `Record`'s `request_spans`).
 
 Both segments are bracketed by two calibration points, and the program's
 times are mapped onto the trace's clock by the line through them
 (`align`).  Each mark kernel's launch is read on the recorder's clock
 too: a kernel starts after its launch, so a negative lead after the fit
-says the two clocks still disagree there on that rank.
-
-benchmark/run.py does not run them yet: trace.Stretch and the kinds would
-take them in a later change of the benchmark.  benchmark/idle_by_span.py
-runs a cell with them.  A program without the recorder leaves both
-unread (None) and raises nothing.
+says the two clocks still disagree there on that rank.  A program without
+the recorder leaves both unread (None) and raises nothing.
 """
 from __future__ import annotations
 
 import bisect
-import json
-import os
 import statistics
 from collections import defaultdict
 
@@ -48,14 +41,7 @@ from . import trace
 
 SPAN_CAT = "program_span"
 COUNTER_CAT = "program_counter"
-BYTES = "comm.bytes"
-# a unit's idle time under these spans (on any thread): name -> (spans of
-# which one must be open, spans of which none may be)
-UNDER = {"unet": ({"unet.call"}, set()),
-         "sampler": ({"sampler.step"}, set()),
-         "forward": ({"train.grad_step"}, {"train.backward"}),
-         "backward": ({"train.backward"}, set()),
-         "optim": ({"train.apply_step"}, set())}
+LAUNCHES = ("cuda_runtime", "cuda_driver")    # a launch's host event
 
 
 def _innermost(spans, mids):
@@ -82,10 +68,12 @@ def reduce_spans(events, units: int):
     lies in the span.
 
     idle_by_span: [[innermost span name or "none", seconds]], largest
-    first; within: the same of every span open over a gap, its children
-    included; covered_s: the idle time under some span; under: {UNDER key:
-    [seconds a unit]}; unet_host_s: each unet.call span's host duration
-    that starts in the span; comm_bytes: comm.bytes added in each unit."""
+    first; within: {name: [seconds a unit]}, the idle time under each
+    span, its children included; covered_s: the idle time under some
+    span; queued_s: the idle time before operations launched before it
+    began, put down at their launch; host_s: {name: [host seconds of each
+    span of that name that starts in the span]}; counts: {counter: [added
+    in each unit]}."""
     device = trace.reduce_device(events, units)
     if device is None:
         return None
@@ -98,12 +86,30 @@ def reduce_spans(events, units: int):
     s0, s1 = edges[0], edges[-1]
     busy = trace._busy([e for e in dev if not trace._is_mark(e)
                         and s0 <= float(e["ts"]) < s1], s0, s1)
-    gaps = sorted(((a + b) / 2, b - a) for a, b in zip(
-        [s0] + [e for _, e in busy], [s for s, _ in busy] + [s1]) if b > a)
-    mids = [m for m, _ in gaps]
+    # each gap at its middle, or at the launch of the operation that ends
+    # it where that came before the gap began (module docstring)
+    launched = {e["args"]["correlation"]: float(e["ts"]) for e in xs
+                if e.get("cat") in LAUNCHES
+                and "correlation" in e.get("args", {})}
+    starts = {}
+    for e in dev:
+        t = launched.get(e.get("args", {}).get("correlation"))
+        if t is not None:
+            ts = float(e["ts"])
+            starts[ts] = min(t, starts.get(ts, t))
+    gaps = []                   # (middle, width, the launch or None)
+    for a, b in zip([s0] + [e for _, e in busy], [s for s, _ in busy] + [s1]):
+        if b > a:
+            t = starts.get(b)
+            gaps.append(((a + b) / 2, b - a,
+                         t if t is not None and t < a else None))
+    at = [m if t is None else t for m, _, t in gaps]
+    order = sorted(range(len(gaps)), key=at.__getitem__)
+    at = [at[g] for g in order]
 
     spans = {}
     threads = defaultdict(list)
+    host = defaultdict(list)
     for e in xs:
         if e.get("cat") == SPAN_CAT:
             i = e["args"]["id"]
@@ -111,13 +117,18 @@ def reduce_spans(events, units: int):
             end = start + float(e["dur"])
             spans[i] = (e["name"], start, end, e["args"]["parent"])
             threads[e.get("tid")].append((start, end, i))
+            if s0 <= start < s1:
+                host[e["name"]].append(float(e["dur"]) * 1e-6)
     if not any(start < s1 and end > s0 for _, start, end, _
                in spans.values()):
         return None
     inner = []
     for ranges in threads.values():
         ranges.sort(key=lambda r: (r[0], -r[1]))    # a parent first
-        inner.append(_innermost(ranges, mids))
+        ids = [-1] * len(gaps)
+        for g, i in zip(order, _innermost(ranges, at)):
+            ids[g] = i
+        inner.append(ids)
 
     chains = {}
 
@@ -129,42 +140,50 @@ def reduce_spans(events, units: int):
                          else {name})
         return chains[i]
 
-    by_name, within = defaultdict(float), defaultdict(float)
-    under = {k: [0.0] * units for k in UNDER}
-    covered = 0.0
-    for g, (m, width) in enumerate(gaps):
+    by_name = defaultdict(float)
+    within = defaultdict(lambda: [0.0] * units)
+    covered = queued = 0.0
+    for g, (m, width, t) in enumerate(gaps):
         open_ids = [ids[g] for ids in inner if ids[g] >= 0]
         width *= 1e-6
+        if t is not None:
+            queued += width
         if not open_ids:
             by_name["none"] += width
             continue
         covered += width
         last = max(open_ids, key=lambda i: spans[i][1])
         by_name[spans[last][0]] += width
-        names = set().union(*(chain(i) for i in open_ids))
-        for name in names:
-            within[name] += width
         unit = min(bisect.bisect_right(edges, m) - 1, units - 1)
-        for key, (need, forbid) in UNDER.items():
-            if names & need and not names & forbid:
-                under[key][unit] += width
+        for name in set().union(*(chain(i) for i in open_ids)):
+            within[name][unit] += width
 
-    host = [float(e["dur"]) * 1e-6 for e in xs
-            if e.get("cat") == SPAN_CAT and e["name"] == "unet.call"
-            and s0 <= float(e["ts"]) < s1]
-    comm = [0] * units
-    last_total = 0
-    for e in sorted((e for e in events if e.get("cat") == COUNTER_CAT
-                     and e.get("name") == BYTES),
+    counts = defaultdict(lambda: [0] * units)
+    last_total = defaultdict(int)
+    for e in sorted((e for e in events if e.get("cat") == COUNTER_CAT),
                     key=lambda e: float(e["ts"])):
-        total = int(e["args"][BYTES])
-        t = float(e["ts"])
+        name, t = e["name"], float(e["ts"])
+        total = int(e["args"][name])
         if s0 <= t < s1:
-            comm[bisect.bisect_right(edges, t) - 1] += total - last_total
-        last_total = total
+            counts[name][bisect.bisect_right(edges, t) - 1] += (
+                total - last_total[name])
+        last_total[name] = total
     return dict(device, idle_by_span=_largest_first(by_name),
-                within=_largest_first(within), covered_s=covered,
-                under=under, unet_host_s=host, comm_bytes=comm)
+                within=dict(within), covered_s=covered, queued_s=queued,
+                host_s=dict(host), counts=dict(counts))
+
+
+def idle_ms(segment, name: str, less: str = None):
+    """The median over a reduced segment's units of the idle milliseconds
+    under the span `name`, its children included, less those under
+    `less`; None where the segment was not read or no span `name` starts
+    in it."""
+    if segment is None or name not in segment["host_s"]:
+        return None
+    zero = [0.0] * segment["units"]
+    total = segment["within"].get(name, zero)
+    part = segment["within"].get(less, zero) if less else zero
+    return 1e3 * statistics.median(a - b for a, b in zip(total, part))
 
 
 def _largest_first(seconds: dict) -> list:
@@ -227,20 +246,6 @@ def align(events, record, base_ns: int, points, launches):
     return events, out, [at(x) for x in launch_us], fit
 
 
-def _stop_and_read(R, prof, name: str):
-    """Stop a device-only profiler after the device is done; its trace's
-    events and baseTimeNanoseconds (the frame the program's spans go
-    in)."""
-    R.sync()
-    prof.stop()
-    path = os.path.join(R.tmpdir, name)
-    prof.export_chrome_trace(path)
-    with open(path) as f:
-        data = json.load(f)
-    os.remove(path)
-    return data["traceEvents"], int(data.get("baseTimeNanoseconds", 0))
-
-
 # the profiler's first launches, before a segment's first calibration point
 LEAD_LAUNCHES = 64
 
@@ -286,45 +291,24 @@ def read_segment(R, what: str, events, record, base_ns: int, units: int,
         spans = [e["ts"] for e in mine if e["cat"] == SPAN_CAT]
         marks = sorted(float(e["ts"]) for e in _spins(events))
         R.log(f"{what} read nothing: {len(marks)} mark kernels for {units}"
-              f" units" + (f" at {marks[0]}..{marks[-1]} us" if marks else "")
+              f" units and 2 calibration points at {marks} us, launched at "
+              f"{launch_us} us, the points at "
+              f"{[(t - base_ns) / 1e3 for t in points]} us"
               + f", {len(spans)} closed spans of the program"
               + (f" at {min(spans)}..{max(spans)} us" if spans else "")
               + f", {len(events)} trace events")
         return None
+    R.log(f"{what}: counters added a unit {got['counts']}")
     return got
-
-
-def figures(s: dict) -> dict:
-    """The per-layer numbers of a reduced segment (None where it holds
-    nothing of them): milliseconds are medians over the units."""
-    def ms(values):
-        return 1e3 * statistics.median(values) if values else None
-
-    def ms_under(key, needs):
-        return ms(s["under"][key]) if needs else None
-    gen = bool(s["unet_host_s"])
-    train = any(s["under"]["optim"]) or any(s["under"]["forward"])
-    rates = [b / t * 1e-9 for b, t in zip(s["comm_bytes"], s["nccl_unit_s"])
-             if b > 0 and t > 0]
-    return {"unet_host_ms.gen": ms(s["unet_host_s"]),
-            "unet_idle_ms.gen": ms_under("unet", gen),
-            "sampler_idle_ms.gen": ms_under("sampler", gen),
-            "forward_idle_ms.train": ms_under("forward", train),
-            "backward_idle_ms.train": ms_under("backward", train),
-            "optim_idle_ms.train": ms_under("optim", train),
-            "allreduce_gbps.train": (statistics.median(rates) if rates
-                                     else None)}
 
 
 def _across_ranks(s, R, n: int):
     """trace._across_ranks for the span, the busy time and the NCCL time;
-    the ranks' mean of the idle times and host spans; each rank's
-    comm.bytes a unit kept as `comm_bytes_ranks`.  None on every rank
-    where any rank read nothing."""
+    the ranks' mean of the idle times and host spans; this rank's counts
+    (its log has them).  None on every rank where any rank read nothing."""
     s = trace._across_ranks(s, R, n)
     if s is None or R.world == 1:
-        return None if s is None else dict(s, comm_bytes_ranks=[
-            s["comm_bytes"]])
+        return s
     import torch.distributed as dist
     got = [None] * R.world
     dist.all_gather_object(got, s)
@@ -332,114 +316,39 @@ def _across_ranks(s, R, n: int):
     def mean(values):
         return sum(values) / R.world
 
-    def mean_by_name(key):
-        names = {name for g in got for name, _ in g[key]}
-        return _largest_first({name: mean([dict(g[key]).get(name, 0.0)
-                                           for g in got]) for name in names})
+    def names(key):
+        return {name for g in got for name in dict(g[key])}
+    zero = [0.0] * n
     return dict(
         s, covered_s=mean([g["covered_s"] for g in got]),
-        idle_by_span=mean_by_name("idle_by_span"),
-        within=mean_by_name("within"),
-        under={k: [mean([g["under"][k][u] for g in got]) for u in range(n)]
-               for k in UNDER},
-        unet_host_s=[mean(v) for v in zip(*(g["unet_host_s"] for g in got))],
-        comm_bytes_ranks=[g["comm_bytes"] for g in got])
+        queued_s=mean([g["queued_s"] for g in got]),
+        idle_by_span=_largest_first({
+            name: mean([dict(g["idle_by_span"]).get(name, 0.0)
+                        for g in got]) for name in names("idle_by_span")}),
+        within={name: [mean([g["within"].get(name, zero)[u] for g in got])
+                       for u in range(n)] for name in names("within")},
+        host_s={name: [mean(v) for v in zip(*(g["host_s"].get(name, [])
+                                              for g in got))]
+                for name in names("host_s")})
 
 
-def _log_table(R, spans: dict):
-    for name, s in spans["idle_by_span"]:
-        R.log(f"  idle under {name}: {s} s")
-    for name, s in spans["within"]:
-        R.log(f"  idle within {name} (its children included): {s} s")
-
-
-class SpanStretch(trace.Stretch):
-    """trace.Stretch and a fourth segment of n units read with the
-    program's spans (module docstring)."""
-
-    def __init__(self, R, n: int, subs, tag: str):
-        super().__init__(R, n, subs, tag)
-        self.spans = None
-        self._tracing = self._record = None
-        self._points, self._launches = [], []
-
-    @property
-    def done(self) -> bool:
-        return self.b > 4 * self.n + 2
-
-    def boundary(self):
-        b, n = self.b, self.n
-        if self.done:
-            return
-        if b <= 3 * n + 1:
-            super().boundary()
-            if b == 3 * n + 1:
-                self.prof = trace.profiler(host=False)
-                self.prof.start()
-                self._trace_on()
-                if self._record is not None:
-                    _calibrate(self.R, self._record, self._points)
-            return
-        if self._record is not None:
-            _launch_mark(self.R, self._record, self._launches)
-        if b == 4 * n + 2:
-            record = self._trace_off()
-            if record is not None:
-                _calibrate(self.R, record, self._points)
-            events, base_ns = _stop_and_read(
-                self.R, self.prof, f"trace_{self.tag}{self.R.rank}s.json")
-            self.prof = None
-            if record is None:
-                self.R.log("the fourth segment: the program has no recorder")
-            else:
-                self.spans = read_segment(
-                    self.R, "the fourth segment", events, record, base_ns,
-                    n, self._points, self._launches)
-        self.b += 1
-
-    def _trace_on(self):
-        from asva_tpu_torch import observability
-        tracing = getattr(observability, "tracing", None)
-        if tracing is not None:
-            self._tracing = tracing()
-            self._record = self._tracing.__enter__()
-
-    def _trace_off(self):
-        record, self._record = self._record, None
-        if self._tracing is not None:
-            self._tracing.__exit__(None, None, None)
-            self._tracing = None
-        return record
-
-    def result(self):
-        """trace.Stretch.result, with the fourth segment's figures in the
-        summary (`span_figures`), its idle time by span in the breakdown
-        (`idle_by_span`, the top 10) and its tables in the log."""
-        self._trace_off()            # the work ended inside segment 4
-        summary, breakdown = super().result()
-        if summary is None:
-            return summary, breakdown
-        spans = _across_ranks(self.spans, self.R, self.n)
-        if spans is None:
-            self.R.log("the fourth segment read no program span")
-            return summary, breakdown
-        idle = spans["window_s"] - spans["busy_s"]
-        on_cost = spans["window_s"] / summary["window_s"]
-        coverage = spans["covered_s"] / idle if idle > 0 else None
-        got = figures(spans)
-        self.R.log(
-            f"fourth segment, {self.n} units with the program's spans: "
-            f"span {spans['window_s']} s, {on_cost} of the second "
-            f"segment's {summary['window_s']} s; busy {spans['busy_s']} s, "
-            f"idle {idle} s, under a program span {spans['covered_s']} s "
-            f"({coverage} of the idle time); comm.bytes a unit by rank "
-            f"{spans['comm_bytes_ranks']}")
-        _log_table(self.R, spans)
-        self.R.log(f"span figures: {got}")
-        summary = dict(summary, span_figures=got)
-        breakdown = dict(breakdown,
-                         idle_by_span=spans["idle_by_span"][:10])
-        return summary, breakdown
+def log_segment(R, what: str, s: dict, second_s: float = None):
+    """A reduced segment's span, idle time and its share under a program
+    span, and its tables, in the log; with `second_s`, the span over the
+    second segment's (the recorder's on-cost)."""
+    idle = s["window_s"] - s["busy_s"]
+    R.log(f"{what} with the program's spans: span {s['window_s']} s"
+          + (f", {s['window_s'] / second_s} of the second segment's "
+             f"{second_s} s" if second_s else "")
+          + f"; busy {s['busy_s']} s, idle {idle} s, under a program span "
+          f"{s['covered_s']} s ({s['covered_s'] / idle if idle > 0 else None}"
+          f" of the idle time), {s['queued_s']} s of it before queued work, "
+          f"put down at its launch")
+    for name, sec in s["idle_by_span"]:
+        R.log(f"  idle under {name}: {sec} s")
+    for name, sec in _largest_first({name: sum(v) for name, v
+                                     in s["within"].items()}):
+        R.log(f"  idle within {name} (its children included): {sec} s")
 
 
 def request_segment(R, request, index: int):
@@ -462,31 +371,10 @@ def request_segment(R, request, index: int):
         request(index)
         _launch_mark(R, record, launches)
         _calibrate(R, record, points)
-    events, base_ns = _stop_and_read(R, prof, f"trace_req{R.rank}.json")
+    events, base_ns = trace.stop_and_read(R, prof,
+                                          f"trace_req{R.rank}.json")
     got = read_segment(R, "the request segment", events, record, base_ns,
                        1, points, launches)
-    if got is None:
-        return None
-    idle = got["window_s"] - got["busy_s"]
-    R.log(f"request segment, one request with the program's spans: span "
-          f"{got['window_s']} s, busy {got['busy_s']} s, idle {idle} s, "
-          f"under a program span {got['covered_s']} s "
-          f"({got['covered_s'] / idle if idle > 0 else None} of the idle "
-          f"time)")
-    _log_table(R, got)
+    if got is not None:
+        log_segment(R, "request segment, one request", got)
     return got
-
-
-def with_request_segment(stretch):
-    """kinds/generate.py's `stretch`, then request_segment on the same
-    request index; the breakdown gains `request_idle_by_span` (the top
-    10)."""
-    def call(R, pipe, fused, request, index, first, n):
-        summary, breakdown = stretch(R, pipe, fused, request, index, first,
-                                     n)
-        got = request_segment(R, request, index)
-        if breakdown is not None and got is not None:
-            breakdown = dict(breakdown,
-                             request_idle_by_span=got["idle_by_span"][:10])
-        return summary, breakdown
-    return call

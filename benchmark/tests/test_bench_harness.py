@@ -94,7 +94,9 @@ def test_every_cell_resolves_to_its_files():
     assert all(m["moves"] in e2e for m in spec["per_layer"])
     for c in spec["configs"]:
         cfg = json.load(open(os.path.join(ROOT, c["file"])))
-        assert c["file"].startswith("benchmark/") and c["reduced"] == []
+        assert c["file"].startswith("benchmark/")
+        assert isinstance(c["reduced"], list)
+        assert all(key in cfg for key in c["reduced"]), c["reduced"]
         assert cfg["name"] == c["name"]
 
 
@@ -304,8 +306,9 @@ def test_the_span_lies_between_the_marks():
 
 
 def test_the_stretch_walks_its_units_on_the_cpu():
-    """3n + 1 units, the profilers started and stopped on their
-    boundaries; on the CPU no mark is launched, so it reads nothing."""
+    """4n + 2 units and, where the fourth segment read nothing, twice n + 1
+    more, the profilers started and stopped on their boundaries; on the CPU
+    no mark is launched, so it reads nothing."""
     with tempfile.TemporaryDirectory() as tmp:
         r = harness.Run(cell=None, seed=0, seconds=0, trace=True,
                         device="cpu", t0=time.perf_counter(), tmpdir=tmp)
@@ -317,8 +320,9 @@ def test_the_stretch_walks_its_units_on_the_cpu():
             if not st.done:
                 torch.ones(4).add_(1)
                 units += 1
-        assert units == 7 and st.prof is None and not subs.recording
-        assert st.result() == (None, None)
+        assert units == 16 and st.prof is None and not subs.recording
+        assert st.result() == (None, None, None)
+        assert os.listdir(tmp) == []
 
 
 def test_the_data_states_what_is_run(tiny):
@@ -341,6 +345,43 @@ def test_the_data_states_what_is_run(tiny):
         json.dump(spec, open(os.path.join(tmp, "BENCHMARK.json"), "w"))
         with pytest.raises(ValueError, match="audio_sample_rate"):
             harness.load_cell("gen_256_plms50", tmp)
+
+
+def _root_with(tmp, edit):
+    """A root beside the repository's BENCHMARK.json whose configuration
+    files are the repository's after `edit(cfg)`."""
+    spec = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
+    os.makedirs(os.path.join(tmp, "benchmark", "configs"))
+    for c in spec["configs"]:
+        cfg = json.load(open(os.path.join(ROOT, c["file"])))
+        edit(cfg)
+        json.dump(cfg, open(os.path.join(tmp, c["file"]), "w"))
+    json.dump(spec, open(os.path.join(tmp, "BENCHMARK.json"), "w"))
+
+
+def test_a_configuration_without_an_audio_tower_loads():
+    """The audio invariants hold only where there is an audio group: a
+    model without one loads, and its kind decides what it reads."""
+    def no_audio(cfg):
+        for key in ("audio", *harness.FIXED):
+            del cfg[key]
+    with tempfile.TemporaryDirectory() as tmp:
+        _root_with(tmp, no_audio)
+        cell = harness.load_cell("gen_tgh_plms50", tmp)
+    assert "audio" not in cell.config and cell.chips == 1
+    assert cell.config["image_size"] == [128, 256]
+    assert cell.traffic == harness.load_cell("gen_tgh_plms50").traffic
+
+
+@pytest.mark.parametrize("key", sorted(harness.FIXED))
+def test_an_audio_configuration_that_leaves_out_a_fixed_key_is_refused(
+        key):
+    def drop(cfg):
+        del cfg[key]
+    with tempfile.TemporaryDirectory() as tmp:
+        _root_with(tmp, drop)
+        with pytest.raises(ValueError, match=key):
+            harness.load_cell("train_256_b4a2", tmp)
 
 
 # ------------------------------------------------------ the processes ---

@@ -1,6 +1,7 @@
 """CPU tests of benchmark/spans.py: the reducer that puts the device's idle
-gaps down to the program's spans, the per-layer figures, the walk of the
-four-segment stretch, and (on a card) the shared clock.
+gaps down to the program's spans, the per-layer readers of the segment it
+reduces, the walk of the four-segment stretch, and (on a card) the shared
+clock.
 
 python -m pytest benchmark/tests/test_spans.py -q
 python -m pytest benchmark/tests/test_spans.py -m cuda -s   (on a card)
@@ -18,8 +19,7 @@ import torch
 
 from benchmark import harness, spans, sublayers, trace
 from benchmark.kinds import finetune, generate
-from test_bench_harness import (_data_parallel_rank, _run,  # noqa: F401
-                                tiny)
+from test_bench_harness import _run, tiny  # noqa: F401
 
 MARK = "at::cuda::(anonymous namespace)::spin_kernel(long)"
 
@@ -37,6 +37,11 @@ def _span(i, name, ts, end, parent=-1, tid=1):
 def _bytes(ts, total):
     return {"ph": "C", "cat": "program_counter", "name": "comm.bytes",
             "ts": ts, "args": {"comm.bytes": total}}
+
+
+def _close(table):
+    """A {name: [numbers]} table to compare to within rounding."""
+    return {name: pytest.approx(v) for name, v in table.items()}
 
 
 def _training_trace():
@@ -69,50 +74,87 @@ def test_each_gap_goes_to_the_innermost_span_opened_last():
     assert [n for n, _ in got["idle_by_span"]][:2] == ["train.grad_step",
                                                        "train.apply_step"]
     assert got["covered_s"] == pytest.approx(1200e-6)
-    under = got["under"]
-    assert under["backward"] == pytest.approx([200e-6, 0.0])
-    assert under["forward"] == pytest.approx([600e-6, 0.0])
-    assert under["optim"] == pytest.approx([0.0, 400e-6])
-    assert under["unet"] == under["sampler"] == [0.0, 0.0]
-    assert got["comm_bytes"] == [0, 1000]
+    within = got["within"]
+    assert within["train.backward"] == pytest.approx([200e-6, 0.0])
+    assert within["fused.B1"] == pytest.approx([200e-6, 0.0])
+    assert within["train.grad_step"] == pytest.approx([800e-6, 0.0])
+    assert within["train.apply_step"] == pytest.approx([0.0, 400e-6])
+    assert "comm.all_reduce" not in within and "unet.call" not in within
+    assert got["counts"] == {"comm.bytes": [0, 1000]}
     assert got["nccl_unit_s"] == pytest.approx([0.0, 100e-6])
-    fig = spans.figures(got)
-    assert fig["backward_idle_ms.train"] == pytest.approx(0.1)
-    assert fig["forward_idle_ms.train"] == pytest.approx(0.3)
-    assert fig["optim_idle_ms.train"] == pytest.approx(0.2)
-    assert fig["allreduce_gbps.train"] == pytest.approx(1000 / 100e-6 / 1e9)
-    assert fig["unet_host_ms.gen"] is None
-    assert fig["unet_idle_ms.gen"] is fig["sampler_idle_ms.gen"] is None
+    assert got["host_s"] == _close({
+        "train.grad_step": [850e-6], "train.backward": [550e-6],
+        "fused.B1": [70e-6], "train.apply_step": [500e-6],
+        "comm.all_reduce": [40e-6]})
+    assert _read_all(got) == pytest.approx({
+        "backward_idle_ms.train": 0.1, "forward_idle_ms.train": 0.3,
+        "optim_idle_ms.train": 0.2,
+        "allreduce_gbps.train": 1000 / 100e-6 / 1e9})
+
+
+def _generation_trace():
+    """Two UNet calls between marks, a UNet call opened at the instant its
+    denoise did.  Gaps [1, 11) [21, 41) [61, 111) | [121, 171) [181, 201)."""
+    return [_k(MARK, 0, 1), _k("conv", 11, 10), _k("conv", 41, 20),
+            _k(MARK, 100, 1), _k("conv", 111, 10), _k("conv", 171, 10),
+            _k(MARK, 201, 1),
+            _span(0, "pipe.denoise", 1, 300),
+            _span(1, "unet.call", 1, 60, parent=0),
+            _span(2, "unet.down.0", 25, 40, parent=1),
+            _span(3, "sampler.step", 60, 110, parent=0),
+            _span(4, "unet.call", 110, 180, parent=0),
+            _span(5, "sampler.step", 180, 230, parent=0)]
 
 
 def test_generation_figures_and_nested_spans_of_one_start():
-    """A UNet call opened at the instant its denoise did: the child is the
-    innermost.  Gaps [1, 11) [21, 41) [61, 111) | [121, 171) [181, 201)."""
-    events = [_k(MARK, 0, 1), _k("conv", 11, 10), _k("conv", 41, 20),
-              _k(MARK, 100, 1), _k("conv", 111, 10), _k("conv", 171, 10),
-              _k(MARK, 201, 1),
-              _span(0, "pipe.denoise", 1, 300),
-              _span(1, "unet.call", 1, 60, parent=0),
-              _span(2, "unet.down.0", 25, 40, parent=1),
-              _span(3, "sampler.step", 60, 110, parent=0),
-              _span(4, "unet.call", 110, 180, parent=0),
-              _span(5, "sampler.step", 180, 230, parent=0)]
-    got = spans.reduce_spans(events, units=2)
+    """The child opened at its parent's instant is the innermost."""
+    got = spans.reduce_spans(_generation_trace(), units=2)
     assert dict(got["idle_by_span"]) == pytest.approx({
         "unet.call": 60e-6, "unet.down.0": 20e-6, "sampler.step": 70e-6})
     assert got["covered_s"] == pytest.approx(150e-6)
-    assert dict(got["within"]) == pytest.approx({
-        "pipe.denoise": 150e-6, "unet.call": 80e-6, "sampler.step": 70e-6,
-        "unet.down.0": 20e-6})
-    assert got["within"][0][0] == "pipe.denoise"
-    assert got["under"]["unet"] == pytest.approx([30e-6, 50e-6])
-    assert got["under"]["sampler"] == pytest.approx([50e-6, 20e-6])
-    fig = spans.figures(got)
-    assert fig["unet_host_ms.gen"] == pytest.approx(64.5e-3)
-    assert fig["unet_idle_ms.gen"] == pytest.approx(40e-3)
-    assert fig["sampler_idle_ms.gen"] == pytest.approx(35e-3)
-    assert fig["forward_idle_ms.train"] is None
-    assert fig["allreduce_gbps.train"] is None
+    assert got["within"] == _close({
+        "pipe.denoise": [80e-6, 70e-6], "unet.call": [30e-6, 50e-6],
+        "sampler.step": [50e-6, 20e-6], "unet.down.0": [20e-6, 0.0]})
+    assert got["counts"] == {}
+    assert _read_all(got) == pytest.approx({
+        "unet_host_ms.gen": 64.5e-3, "unet_idle_ms.gen": 40e-3,
+        "sampler_idle_ms.gen": 35e-3})
+
+
+READERS = ("unet_host_ms.gen", "unet_idle_ms.gen", "sampler_idle_ms.gen",
+           "forward_idle_ms.train", "backward_idle_ms.train",
+           "optim_idle_ms.train", "allreduce_gbps.train")
+
+
+def _read_all(segment):
+    """Each span reader's number of a Record that carries `segment`, where
+    it reads one."""
+    rec = harness.Record()
+    rec.spans = segment
+    got = {name: harness.metric_reader(name)(rec) for name in READERS}
+    return {name: value for name, value in got.items() if value is not None}
+
+
+@pytest.mark.parametrize("name", READERS)
+def test_each_span_reader_reads_the_records_segment(name):
+    """Every reader returns its number from a Record that carries a
+    synthetic trace's reduced segment, its cell's kind's, and None from one
+    whose recorder was off."""
+    read = harness.metric_reader(name)
+    assert read(harness.Record()) is None
+    trace_of = _generation_trace if name.endswith(".gen") \
+        else _training_trace
+    rec = harness.Record()
+    rec.spans = spans.reduce_spans(trace_of(), units=2)
+    value = read(rec)
+    assert isinstance(value, float) and value > 0, value
+    assert harness.per_layer_metrics(
+        types.SimpleNamespace(per_layer=[{"name": name, "unit": "u"}]),
+        rec) == {name: {"value": value, "unit": "u"}}
+    spec = json.load(open(os.path.join(harness.ROOT, "BENCHMARK.json")))
+    entry = {m["name"]: m for m in spec["per_layer"]}[name]
+    assert all(w.startswith("gen_" if name.endswith(".gen") else "train_")
+               for w in entry["workloads"])
 
 
 def test_no_program_span_in_the_span_reads_nothing():
@@ -125,13 +167,13 @@ def test_no_program_span_in_the_span_reads_nothing():
 def test_the_four_segment_stretch_walks_its_units_on_the_cpu():
     """4n + 2 units, the fourth segment's profiler and the program's
     recorder on for its extent; on the CPU no mark is launched, so it
-    reads nothing."""
+    reads nothing and takes the fourth segment twice more."""
     from asva_tpu_torch import observability
     with tempfile.TemporaryDirectory() as tmp:
         r = harness.Run(cell=None, seed=0, seconds=0, trace=True,
                         device="cpu", t0=time.perf_counter(), tmpdir=tmp)
         subs = sublayers.Sublayers(None)
-        st = spans.SpanStretch(r, 2, subs, "t")
+        st = trace.Stretch(r, 2, subs, "t")
         units, recording = 0, []
         while not st.done:
             st.boundary()
@@ -140,10 +182,10 @@ def test_the_four_segment_stretch_walks_its_units_on_the_cpu():
                     torch.ones(4).add_(1)
                 recording.append(observability._RECORD is not None)
                 units += 1
-        assert units == 10 and st.prof is None and not subs.recording
-        assert recording == [False] * 7 + [True] * 3
+        assert units == 16 and st.prof is None and not subs.recording
+        assert recording == [False] * 7 + [True] * 9
         assert observability._RECORD is None and st.spans is None
-        assert st.result() == (None, None)
+        assert st.result() == (None, None, None)
 
 
 def test_a_program_without_the_recorder_leaves_the_segment_unread(
@@ -153,26 +195,47 @@ def test_a_program_without_the_recorder_leaves_the_segment_unread(
     with tempfile.TemporaryDirectory() as tmp:
         r = harness.Run(cell=None, seed=0, seconds=0, trace=True,
                         device="cpu", t0=time.perf_counter(), tmpdir=tmp)
-        st = spans.SpanStretch(r, 1, sublayers.Sublayers(None), "t")
+        st = trace.Stretch(r, 1, sublayers.Sublayers(None), "t")
         while not st.done:
             st.boundary()
-        assert st.spans is None and st.result() == (None, None)
+        assert st.spans is None and st.result() == (None, None, None)
+
+
+def test_a_gap_before_queued_work_goes_to_the_spans_that_launched_it():
+    """The operation after [20, 50) was launched at 10, before the gap: the
+    gap goes to the span open then, not to the one open at its middle.
+    The last mark was launched at 95, inside [60, 100): its middle rules."""
+    def launch(ts, c):
+        return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+                "ts": ts, "dur": 2, "args": {"correlation": c}}
+    events = [_k(MARK, 0, 1), _k("a", 1, 19),
+              dict(_k("b", 50, 10), args={"correlation": 7}), launch(10, 7),
+              dict(_k(MARK, 100, 1), args={"correlation": 8}), launch(95, 8),
+              _span(0, "fused.B2", 5, 15), _span(1, "sampler.step", 30, 40),
+              _span(2, "unet.call", 70, 90)]
+    got = spans.reduce_spans(events, units=1)
+    assert dict(got["idle_by_span"]) == pytest.approx({
+        "fused.B2": 30e-6, "unet.call": 40e-6})
+    assert got["queued_s"] == pytest.approx(30e-6)
+    assert got["covered_s"] == pytest.approx(70e-6)
+    assert "sampler.step" not in got["within"]
 
 
 @pytest.mark.parametrize("workload,kind", [("gen_256_plms50", generate),
                                            ("train_256_b4a2", finetune)])
-def test_the_kinds_run_the_four_segment_stretch(tiny, monkeypatch,  # noqa
-                                                workload, kind):
+def test_the_kinds_run_the_four_segment_stretch(tiny, workload,  # noqa
+                                                kind):
+    """On the CPU no segment reads a number, so the span readers leave
+    their metrics out of the line."""
     from asva_tpu_torch import observability
-    monkeypatch.setattr(trace, "Stretch", spans.SpanStretch)
-    monkeypatch.setattr(generate, "stretch",
-                        spans.with_request_segment(generate.stretch))
     cell = tiny(workload, num_inference_steps=8) if kind is generate \
         else tiny(workload)
     out = _run(cell, kind, trace=True)
     line = harness.result_line(cell, out, True, {"platform": "cpu"})
     assert line["correct"] is True, line["checks"]
     assert observability._RECORD is None
+    assert out.record.spans is out.record.request_spans is None
+    assert not set(line["metrics"]) & set(READERS)
 
 
 def _gather_rank(rank, world, port, out):
@@ -186,7 +249,8 @@ def _gather_rank(rank, world, port, out):
                covered_s=got["covered_s"] * (rank + 1),
                idle_by_span=got["idle_by_span"] + [[f"r{rank}", 1.0]],
                nccl_unit_s=[0.0, 1e-4 * (world - rank)],
-               comm_bytes=[0, 1000 + rank])
+               counts={"comm.bytes": [0, 1000 + rank]},
+               host_s=dict(got["host_s"], only=[float(rank)]))
     merged = spans._across_ranks(got, types.SimpleNamespace(
         world=world, rank=rank, device="cpu"), 2)
     if rank == 0:
@@ -207,9 +271,10 @@ def test_the_ranks_mean_their_times_and_keep_the_least_nccl(tmp_path):
     assert by_name["r3"] == pytest.approx(0.25)
     assert by_name["train.grad_step"] == pytest.approx(600e-6)
     assert got["nccl_unit_s"] == pytest.approx([0.0, 1e-4])
-    assert got["comm_bytes_ranks"] == [[0, 1000 + r] for r in range(4)]
-    assert got["under"]["optim"] == pytest.approx([0.0, 400e-6])
-    assert dict(got["within"])["train.apply_step"] == pytest.approx(400e-6)
+    assert got["counts"] == {"comm.bytes": [0, 1000]}      # rank 0's own
+    assert got["within"]["train.apply_step"] == pytest.approx([0.0, 400e-6])
+    assert got["host_s"]["train.apply_step"] == pytest.approx([500e-6])
+    assert got["host_s"]["only"] == pytest.approx([1.5])
 
 
 def test_the_fit_puts_the_record_on_the_traces_clock():
@@ -266,20 +331,6 @@ def test_the_request_segment_walks_one_request_on_the_cpu():
         assert spans.request_segment(r, request, 3) is None
         assert os.listdir(tmp) == []
     assert seen == [(3, True)] and observability._RECORD is None
-
-
-def _span_rank(rank, world, port, out):
-    trace.Stretch = spans.SpanStretch
-    _data_parallel_rank(rank, world, port, out, False, True)
-
-
-def test_data_parallel_ranks_walk_the_four_segment_stretch(tmp_path):
-    import torch.multiprocessing as mp
-    out = str(tmp_path / "rank0.json")
-    mp.start_processes(_span_rank, args=(2, harness._free_port(), out),
-                       nprocs=2, join=True, start_method="spawn")
-    got = json.load(open(out))
-    assert got["correct"] is True, got
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
-"""Two profiled stretches of a cell's own work and what the per-layer
+"""The profiled stretches of a cell's own work and what the per-layer
 readers take from them.
 
 A kind reports the boundaries of its units of work (UNet calls, optimizer
-steps) to a `Stretch` of n units, which runs over 3n + 1 units:
+steps) to a `Stretch` of n units, which runs over 4n + 2 units in four
+segments:
 
   units [0, n)        unprofiled, between CUDA events: the device-clock
                       time of n units without the profiler, which the
@@ -22,7 +23,21 @@ steps) to a `Stretch` of n units, which runs over 3n + 1 units:
   units [2n+1, 3n+1)  the host profiler (CPU and CUDA) inside the range
                       "bench.stretch": the fused sub-layers' ranges and
                       what the host was inside during each idle gap,
-                      under the profiler's own load.
+                      under the profiler's own load;
+  unit 3n+1           a fresh device-only profiler starts and the
+                      program's recorder is switched on
+                      (`observability.tracing()`);
+  units [3n+2, 4n+2)  the fourth segment, between mark kernels as in the
+                      second and bracketed by two calibration points
+                      (`spans.align`): each idle gap of the device put
+                      down to the program's spans (benchmark/spans.py).
+                      Where it reads nothing on some rank, every rank
+                      takes it again over the next n + 1 units, twice at
+                      most.
+
+Segments 1-3 come first, so the program's recorder is off in all of them.
+A generation run reads one more whole request in the same way
+(`spans.request_segment`).  An untraced run takes no stretch.
 
 On several ranks every rank profiles the same units; the busy time and
 the span are their means, and each unit's NCCL time the least over the
@@ -38,6 +53,7 @@ from collections import defaultdict
 
 import torch
 
+from . import spans
 from .harness import Timer
 
 STRETCH = "bench.stretch"
@@ -214,8 +230,22 @@ def reduce_host(events) -> dict:
             "idle_gaps": [[n, s] for n, s in gap_top]}
 
 
+def stop_and_read(R, prof, name: str):
+    """Stop a profiler after the device is done, and read its trace at once
+    (before the next profiler starts): its events and its
+    baseTimeNanoseconds, the frame the program's spans go in."""
+    R.sync()
+    prof.stop()
+    path = os.path.join(R.tmpdir, name)
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        data = json.load(f)
+    os.remove(path)
+    return data["traceEvents"], int(data.get("baseTimeNanoseconds", 0))
+
+
 class Stretch:
-    """The two profiles over 3n + 1 units of work (module docstring).  The
+    """The four segments over 4n + 2 units of work (module docstring).  The
     kind calls `boundary()` before every unit and once after the last, and
     then `result()`; `subs` (sublayers.Sublayers, active) records during
     the host profile."""
@@ -225,11 +255,14 @@ class Stretch:
         self.b = 0
         self.unprofiled = Timer(R.device)
         self.prof = self.range = None
-        self.device = self.host = None
+        self.device = self.host = self.spans = None
+        self._tracing = self._record = None
+        self._points, self._launches = [], []
+        self.retries = 2
 
     @property
     def done(self) -> bool:
-        return self.b > 3 * self.n + 1
+        return self.b > 4 * self.n + 2
 
     def boundary(self):
         b, n = self.b, self.n
@@ -252,30 +285,78 @@ class Stretch:
             self.subs.recording = True
         if b == 3 * n + 1:
             self.host = reduce_host(self._stop("h"))
+            self._start_fourth()
+        if b > 3 * n + 1 and self._record is not None:
+            spans._launch_mark(self.R, self._record, self._launches)
+        if b == 4 * n + 2:
+            self._read_fourth()
+            if self.retries and not _on_every_rank(self.spans is not None,
+                                                   self.R):
+                # again over the next n + 1 units; this one is the
+                # fresh profiler's first
+                self.retries -= 1
+                self.R.log("the fourth segment again")
+                self._start_fourth()
+                self.b = 3 * n + 2
+                return
         self.b += 1
 
+    def _start_fourth(self):
+        self.prof = profiler(host=False)
+        self.prof.start()
+        self._trace_on()
+        self._points, self._launches = [], []
+        if self._record is not None:
+            spans._calibrate(self.R, self._record, self._points)
+
     def _stop(self, which: str):
-        """Stop the running profiler after the device is done, and read its
-        trace at once (before the next profiler starts)."""
-        self.R.sync()
+        """Stop the running profiler after the device is done; its trace's
+        events."""
         if self.range is not None:
+            self.R.sync()
             self.subs.recording = False
             self.range.__exit__(None, None, None)
             self.range = None
-        self.prof.stop()
-        path = os.path.join(self.R.tmpdir,
-                            f"trace_{self.tag}{self.R.rank}{which}.json")
-        self.prof.export_chrome_trace(path)
+        events, _ = stop_and_read(
+            self.R, self.prof, f"trace_{self.tag}{self.R.rank}{which}.json")
         self.prof = None
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-        os.remove(path)
         return events
 
+    def _trace_on(self):
+        from asva_tpu_torch import observability
+        tracing = getattr(observability, "tracing", None)
+        if tracing is not None:
+            self._tracing = tracing()
+            self._record = self._tracing.__enter__()
+
+    def _trace_off(self):
+        record, self._record = self._record, None
+        if self._tracing is not None:
+            self._tracing.__exit__(None, None, None)
+            self._tracing = None
+        return record
+
+    def _read_fourth(self):
+        record = self._trace_off()
+        if record is not None:
+            spans._calibrate(self.R, record, self._points)
+        events, base_ns = stop_and_read(
+            self.R, self.prof, f"trace_{self.tag}{self.R.rank}s.json")
+        self.prof = None
+        if record is None:
+            self.R.log("the fourth segment: the program has no recorder")
+        else:
+            self.spans = spans.read_segment(
+                self.R, "the fourth segment", events, record, base_ns,
+                self.n, self._points, self._launches)
+
     def result(self):
-        """(summary for the readers, breakdown for the result line), or
-        (None, None) where a profile read nothing.  On several ranks every
-        rank has to call it."""
+        """(summary for the readers, the fourth segment reduced with the
+        program's spans, breakdown for the result line); the first and the
+        last are None where a profile of segments 2-3 read nothing, the
+        second where the fourth read nothing.  On several ranks every rank
+        has to call it."""
+        self._trace_off()                # the work ended inside segment 4
         if self.prof is not None:        # the work ended inside a profile
             self._stop("x")
         summary = None
@@ -289,13 +370,31 @@ class Stretch:
         summary = _across_ranks(summary, self.R, self.n)
         if summary is None:
             self.R.log("the profiled stretch read nothing")
-            return None, None
+            return None, None, None
         self.R.log(f"stretch of {self.n} units: span {summary['window_s']} s "
                    f"profiled, {summary['unprofiled_s']} s unprofiled "
                    f"(CUDA events), busy {summary['busy_s']} s, NCCL a unit "
                    f"{summary['nccl_unit_s']} s")
-        return summary, {"device_ops": summary["device_ops"],
-                         "idle_gaps": summary["idle_gaps"]}
+        breakdown = {"device_ops": summary["device_ops"],
+                     "idle_gaps": summary["idle_gaps"]}
+        got = spans._across_ranks(self.spans, self.R, self.n)
+        if got is None:
+            self.R.log("the fourth segment read no program span")
+            return summary, None, breakdown
+        spans.log_segment(self.R, f"fourth segment, {self.n} units", got,
+                          summary["window_s"])
+        breakdown["idle_by_span"] = got["idle_by_span"][:10]
+        return summary, got, breakdown
+
+
+def _on_every_rank(flag: bool, R) -> bool:
+    """Whether `flag` holds on every rank."""
+    if R.world == 1:
+        return flag
+    import torch.distributed as dist
+    t = torch.tensor([float(flag)], device=R.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return bool(t.item())
 
 
 def _across_ranks(summary, R, n: int):
